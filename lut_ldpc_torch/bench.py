@@ -33,7 +33,8 @@ REPS = 5
 
 def build_codec():
     """The headline codec (bench.py ``build_codec``, QC branch)."""
-    from ._ref import LUTCodec, qc
+    from .core import qc
+    from .decoder.codec import LUTCodec
 
     graph = qc.qc_expand(qc.load_qc(QC_JSON))
     return LUTCodec.design(graph, DESIGN_SIGMA**2, max_iters=MAX_ITERS,
@@ -43,7 +44,7 @@ def build_codec():
 def channel_labels(codec, B: int, snr_db: float = 2.0, seed: int = 0):
     """All-zero codeword over BI-AWGN at `snr_db`: (channel labels, initial
     message labels), (B, nvar) int32 numpy arrays."""
-    from ._ref import pmf
+    from .ops import pmf
 
     sig = float(pmf.snr2sig(0.5, snr_db))
     rng = np.random.default_rng(seed)
@@ -52,17 +53,22 @@ def channel_labels(codec, B: int, snr_db: float = 2.0, seed: int = 0):
     return lc.astype(np.int32), lm.astype(np.int32)
 
 
-def time_decode(dec, lc, lm, reps: int, warmup: int = 2):
-    """Mean seconds per decode call (synchronized) and the last output."""
+def time_decode(dec, lc, lm, reps: int, warmup: int = 2, device=None):
+    """Mean seconds per decode call and the last output; synchronized with
+    the card unless `device` is the CPU."""
     import torch
+
+    def sync():
+        if device is None or device.type == "cuda":
+            torch.cuda.synchronize()
 
     for _ in range(warmup):
         out = dec(lc, lm)
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         out = dec(lc, lm)
-    torch.cuda.synchronize()
+    sync()
     return (time.perf_counter() - t0) / reps, out
 
 

@@ -1,16 +1,23 @@
-from .._ref import LUTCodec
+from .arith import ArithBuildError, build_arith_prefix_spec, build_arith_spec
 from .arith_decoder import ArithLUTDecoder
+from .codec import LUTCodec, codec_from_arrays
 from .fast_decoder import FastLUTDecoder, make_decoder
-from .hybrid import HybridLUTDecoder
+from .hybrid import HybridLUTDecoder, MixedArithDecoder
 from .lut_decoder import cn_minsum
-from .staged import make_staged_decoder
+from .staged import ChunkedDecoder, make_staged_decoder
 
 __all__ = [
+    "ArithBuildError",
     "ArithLUTDecoder",
+    "ChunkedDecoder",
     "FastLUTDecoder",
     "HybridLUTDecoder",
     "LUTCodec",
+    "MixedArithDecoder",
+    "build_arith_prefix_spec",
+    "build_arith_spec",
     "cn_minsum",
+    "codec_from_arrays",
     "make_decoder",
     "make_staged_decoder",
 ]

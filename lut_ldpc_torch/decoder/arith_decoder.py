@@ -1,12 +1,16 @@
-"""Value-domain LUT decoder on a quasi-cyclic plan (the kernel path).
+"""Value-domain LUT decoder (the kernel path).
 
 Port of lut_ldpc_tpu/decoder/arith_decoder.py ``ArithLUTDecoder`` with its
-``_build_qc_pallas`` loop (:1093-1457), as an eager loop over iterations:
+``_build_qc_pallas`` loop (:1093-1457, graphs with a quasi-cyclic plan) and
+its ``_build_std_kernels`` loop (:863-1090, every other graph: PEG codes,
+the unpermuted DVB-S2 matrix), as one eager loop over iterations:
 
 - labels -> int16/float32 values through the spec's leaf tables;
 - per iteration one CN pass (which also yields the syndrome of the input
   signs) and one VN pass (which also yields hard bits and sign
-  unanimity), both from ``qc_kernels``;
+  unanimity), both from ``qc_kernels``: the ``*_qc_pass`` pair rolls
+  circulants inside the kernel, the ``*_std_pass`` pair works on contiguous
+  slot planes and the permutation is a row gather here, before each pass;
 - the early-exit latch ``conv = unan_p & synd & (it >= 1) & ~done`` with
   bits_p / unan_p from the previous VN pass (:1285);
 - the survivor funnel (:1318-1389): when the live count falls to the next
@@ -14,14 +18,16 @@ Port of lut_ldpc_tpu/decoder/arith_decoder.py ``ArithLUTDecoder`` with its
   into a narrower batch by a stable sort of ``done``; the JAX loop's stop
   test becomes a host read of the live count before every iteration;
 - raw mode returns the carry for the hybrid decoder's table tail; full
-  specs finish with the decision trees and the output syndrome.
+  specs finish with the decision trees and the output syndrome;
+- ``resume`` is the continuation mode (``cont_from`` of both JAX loops):
+  the loop starts at iteration k from per-edge values and a given early-exit
+  state, for the mixed-precision decoders' float32 segment.
 
 Messages stay in the standard slot-major grouped layout
 (``GroupedLayout(slot_major=True, align=16)``), shape (rows, B).
 
-Not ported here: phantom-completed graphs (ROADMAP A6), the mixed
-precision continuation ``cont_from`` (A5), the std-layout and plain
-gather builders for graphs without a QC plan (A7, A8).
+Not ported here: phantom-completed graphs (ROADMAP A6) and the plain
+value-domain path ``_build`` without kernels (A8).
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ import os
 import numpy as np
 import torch
 
-from .._ref import build_arith_spec, fast_layout
 from ..device import resolve_device
+from . import fast_layout
 from . import qc_kernels as qk
-from .params import arith_tensors, qc_tables, torch_dtype, vn_params
+from .arith import build_arith_spec
+from .params import (arith_tensors, qc_tables, std_tables, torch_dtype,
+                     vn_params)
 
 __all__ = ["ArithLUTDecoder", "funnel_widths", "as_labels"]
 
@@ -107,17 +115,15 @@ class ArithLUTDecoder:
         self.layout = fast_layout.GroupedLayout(codec.graph, slot_major=True,
                                                 align=16)
         qc = getattr(codec.graph, "qc", None)
-        plan = self.layout.qc_plan(qc) if qc is not None else None
-        if plan is None:
-            raise NotImplementedError(
-                "graphs without a QC plan need the std-layout path (ROADMAP A7)")
-        self.plan = plan
+        self.plan = self.layout.qc_plan(qc) if qc is not None else None
         try:
             spec_di = [self.spec.degrees.index(blk.degree)
                        for blk in self.layout.vn_blocks]
         except ValueError:
             raise ValueError("arith spec degrees do not match graph blocks")
-        self.tables = qc_tables(plan, self.layout, self.device)
+        self.tables = (qc_tables(self.plan, self.layout, self.device)
+                       if self.plan is not None
+                       else std_tables(self.layout, self.device))
         self.params = vn_params(self.spec, self.layout, self.device)
         self.ten = arith_tensors(self.spec, self.layout, self.device)
         self._dec = (None if self.is_prefix else
@@ -125,42 +131,56 @@ class ArithLUTDecoder:
 
     # ------------------------------------------------------------------
     def _cn(self, m_vn):
-        if self.kernels:
-            return qk.cn_qc_pass(m_vn, self.tables)
-        return qk.cn_qc_pass_ref(m_vn, self.tables)
+        """VN-grouped v2c values -> (CN-grouped c2v values, syndrome)."""
+        if self.plan is not None:
+            fn = qk.cn_qc_pass if self.kernels else qk.cn_qc_pass_ref
+            return fn(m_vn, self.tables)
+        fn = qk.cn_std_pass if self.kernels else qk.cn_std_pass_ref
+        return fn(m_vn.index_select(0, self.tables.perm_v2c), self.tables)
 
     def _vn(self, m_cn, vcha, it):
-        if self.kernels:
-            return qk.vn_qc_pass(m_cn, vcha, it, self.params, self.tables)
-        return qk.vn_qc_pass_ref(m_cn, vcha, it, self.params, self.tables)
+        """CN-grouped c2v values -> (VN-grouped v2c values, bits, unan)."""
+        if self.plan is not None:
+            fn = qk.vn_qc_pass if self.kernels else qk.vn_qc_pass_ref
+            return fn(m_cn, vcha, it, self.params, self.tables)
+        fn = qk.vn_std_pass if self.kernels else qk.vn_std_pass_ref
+        return fn(m_cn.index_select(0, self.tables.perm_c2v), vcha, it,
+                  self.params, self.tables)
+
+    def _channel_values(self, llr_cha):
+        """Grouped channel values (nvar_pad, B)."""
+        cha = as_labels(llr_cha, self.device, self.nvar)
+        return self.ten.leaf_cha[cha[:, self.ten.vn_nodes].T].contiguous()
 
     def _init(self, llr_cha, llr_msg):
-        """Grouped channel values (nvar_pad, B) and initial messages."""
-        cha = as_labels(llr_cha, self.device, self.nvar)
+        """Grouped channel values, and the loop state at iteration 0: every
+        edge carries its variable's initial message value."""
+        vcha = self._channel_values(llr_cha)
         msg = as_labels(llr_msg, self.device, self.nvar)
-        cha_lab = cha[:, self.ten.vn_nodes].T
-        msg_lab = msg[:, self.ten.vn_nodes].T
-        vcha = self.ten.leaf_cha[cha_lab].contiguous()
-        v0 = self.ten.leaf_msg0[msg_lab]
+        v0 = self.ten.leaf_msg0[msg[:, self.ten.vn_nodes].T]
         m_vn = v0[self.ten.edge_node].contiguous()
-        return vcha, m_vn
-
-    def _loop(self, vcha, m_vn):
-        """Iterations [0, S) with the early-exit latch and the funnel;
-        returns (m_vn, bits_p, unan_p, done, latched, iters)."""
         B = m_vn.shape[1]
         nvp = self.layout.nvar_pad
         dev = self.device
-        bits_p = torch.zeros((nvp, B), dtype=torch.int8, device=dev)
-        unan_p = torch.zeros(B, dtype=torch.bool, device=dev)
-        done = torch.zeros(B, dtype=torch.bool, device=dev)
-        latched = torch.zeros((nvp, B), dtype=torch.int8, device=dev)
-        iters = torch.full((B,), self.T, dtype=torch.int32, device=dev)
-        state = [m_vn, bits_p, unan_p, done, latched, iters]
+        return vcha, [
+            m_vn,
+            torch.zeros((nvp, B), dtype=torch.int8, device=dev),   # bits_p
+            torch.zeros(B, dtype=torch.bool, device=dev),          # unan_p
+            torch.zeros(B, dtype=torch.bool, device=dev),          # done
+            torch.zeros((nvp, B), dtype=torch.int8, device=dev),   # latched
+            torch.full((B,), self.T, dtype=torch.int32, device=dev)]
+
+    def _loop(self, vcha, state, start: int = 0):
+        """Iterations [start, S) with the early-exit latch and the funnel
+        on state = [m_vn, bits_p, unan_p, done, latched, iters]; returns
+        the state at loop exit."""
+        B = state[0].shape[1]
 
         def step(state, vcha_s, it):
             m_vn, bits_p, unan_p, done, latched, iters = state
+            state[0] = None  # the caller's reference: m_vn is dead after _cn
             m_cn, synd = self._cn(m_vn)
+            del m_vn
             if self.early_exit:
                 conv = unan_p & synd & ~done
                 if it < 1:
@@ -172,12 +192,12 @@ class ArithLUTDecoder:
             return [m_vn, bits_p, unan_p, done, latched, iters]
 
         if not (self.early_exit and self.S > 0):
-            for it in range(self.S):
+            for it in range(start, self.S):
                 state = step(state, vcha, it)
             return state
 
         widths = funnel_widths(B)
-        it = 0
+        it = start
         vcha_s = vcha
         stack = []  # per shrink: (survivor idx, full-width state)
         for si in range(len(widths)):
@@ -209,16 +229,45 @@ class ArithLUTDecoder:
         unspecified."""
         if not self.early_exit:
             raise ValueError("raw carry requires early_exit")
-        vcha, m_vn = self._init(llr_cha, llr_msg)
-        m_vn, _, _, done, latched, iters = self._loop(vcha, m_vn)
+        vcha, state = self._init(llr_cha, llr_msg)
+        m_vn, _, _, done, latched, iters = self._loop(vcha, state)
         return m_vn, done, latched.to(torch.uint8), iters
 
     def __call__(self, llr_cha, llr_msg):
         """Labels (B, nvar) -> (bits (B, nvar) uint8, ok (B,) bool,
         iters (B,) int32); a prefix decoder's ok is its convergence flag."""
-        vcha, m_vn = self._init(llr_cha, llr_msg)
-        m_vn, bits_p, unan_p, done, latched, iters = self._loop(vcha, m_vn)
+        vcha, state = self._init(llr_cha, llr_msg)
+        return self._finish(vcha, self._loop(vcha, state))
+
+    def resume(self, k: int, llr_cha, m_vn, bits_p, unan_p, done, latched,
+               iters, raw: bool = False):
+        """Continuation segment: iterations [k, S) from per-edge values
+        m_vn ((E_vn, B), this spec's iteration-k input table entries, std
+        grouped layout) and the early-exit state at the segment boundary.
+        bits_p / unan_p must be the sign data of the previous segment's
+        final VN outputs, so that the first latch here equals the one a
+        single decoder would take.  Returns what ``__call__`` returns, or
+        with raw=True what ``raw_carry`` returns."""
+        if not self.early_exit:
+            raise ValueError("resume requires early_exit")
+        if not 0 <= k <= self.S:
+            raise ValueError(f"resume at iteration {k} outside [0, {self.S}]")
+        vcha = self._channel_values(llr_cha)
+        state = self._loop(vcha, [
+            m_vn.to(self.dtype).contiguous(), bits_p.to(torch.int8), unan_p,
+            done, latched.to(torch.int8), iters], start=k)
+        if raw:
+            m_vn, _, _, done, latched, iters = state
+            return m_vn, done, latched.to(torch.uint8), iters
+        return self._finish(vcha, state)
+
+    def _finish(self, vcha, state):
+        """Post-loop convergence check, decision trees and output syndrome
+        (arith_decoder.py:1403-1455)."""
+        m_vn, bits_p, unan_p, done, latched, iters = state
+        del state
         m_cn, synd = self._cn(m_vn)
+        del m_vn
         if self.early_exit and self.S >= 1:
             conv = unan_p & synd & ~done
             latched = torch.where(conv[None, :], bits_p, latched)

@@ -10,8 +10,9 @@ value-domain state to.  This is gathers on labels in plain torch; the JAX
 package has no Pallas kernel for it either.
 
 ``make_decoder`` keeps the JAX ladder (fast_decoder.py:50-106) and picks
-the same class for the same codec; where the JAX package would build a
-decoder this package does not have yet it raises NotImplementedError
+the class the JAX package picks for the same codec where its kernels run
+(on a TPU): this package always has a kernel path.  Where the JAX package
+would fall to its unrolled decoder this one raises NotImplementedError
 naming the ROADMAP item.
 """
 
@@ -20,8 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._ref import ArithBuildError, build_arith_spec, fast_layout
 from ..device import resolve_device
+from . import fast_layout
+from .arith import ArithBuildError, build_arith_spec
 from .arith_decoder import ArithLUTDecoder, as_labels
 from .lut_decoder import cn_minsum
 from .params import fast_tables
@@ -31,19 +33,21 @@ __all__ = ["FastLUTDecoder", "make_decoder"]
 
 def make_decoder(codec, device, early_exit: bool = True):
     """Fastest provably-equivalent decoder for this codec, by the JAX
-    package's order: full int16 arithmetic, mixed int16/f32 (ROADMAP A5),
+    package's order: full int16 arithmetic, mixed int16/f32 arithmetic,
     full f32 arithmetic, hybrid prefix + table tail, table decoder,
     unrolled decoder (ROADMAP A8)."""
-    from .hybrid import HybridLUTDecoder, mixed_arith_applies
+    from .hybrid import HybridLUTDecoder, MixedArithDecoder
 
-    try:
+    try:  # int16 halves traffic when exact over the whole budget
         spec = build_arith_spec(codec, dtype=np.int16)
         return ArithLUTDecoder(codec, device, early_exit=early_exit, spec=spec)
     except ArithBuildError:
-        pass
-    if early_exit and mixed_arith_applies(codec):
-        raise NotImplementedError(
-            "MixedArithDecoder (int16 prefix + full f32 finish): ROADMAP A5")
+        pass  # exactness not proven for this codec/dtype: next rung
+    if early_exit:
+        try:  # int16 front segment + full-f32 arithmetic finish
+            return MixedArithDecoder(codec, device)
+        except ArithBuildError:
+            pass  # any other error is a genuine fault and propagates
     try:
         spec = build_arith_spec(codec, dtype=np.float32)
         return ArithLUTDecoder(codec, device, early_exit=early_exit, spec=spec)

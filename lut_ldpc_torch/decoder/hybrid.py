@@ -1,16 +1,26 @@
-"""Hybrid decoder: value-domain prefix + label-domain table tail.
+"""Composed decoders: value-domain segments + label-domain table tail.
 
-Port of lut_ldpc_tpu/decoder/hybrid.py ``HybridLUTDecoder`` (:101), the
-single-spec branch.  The arithmetic form of a near-threshold design often
-validates only a prefix of the iteration budget; the prefix runs on the QC
-kernels (``ArithLUTDecoder.raw_carry``), and when any frame is still
-undecided its message values are mapped back to labels (``seam_labels``)
-and the table decoder continues from iteration S.  The JAX ``lax.cond``
-becomes a host branch on ``done.all()``.
+Port of lut_ldpc_tpu/decoder/hybrid.py.
 
-The mixed-precision middle segment (an f32 continuation after an int16
-prefix) raises NotImplementedError where the JAX package would build it
-(ROADMAP A5).
+``HybridLUTDecoder`` (:101): the arithmetic form of a near-threshold design
+often validates only a prefix of the iteration budget; the prefix runs on
+the CN/VN kernels (``ArithLUTDecoder.raw_carry``), and when any frame is
+still undecided its message values are mapped back to labels
+(``seam_labels``) and the table decoder continues from iteration S.  Where
+the float32 spec validates a longer prefix than the int16 one, a float32
+middle segment runs between the two (int16 kernels for [0, S16), float32
+kernels for [S16, S32), tables after).
+
+``MixedArithDecoder`` (:258): the full float32 spec validates, the int16
+spec only a prefix; iterations [0, S16) run on int16 kernels (half the
+message traffic), the values are re-embedded into the float32 spec's
+iteration-S16 table, and the full float32 decoder continues and finishes
+with its own decision trees.
+
+Every JAX ``lax.cond(jnp.all(done), ...)`` is a host branch on
+``done.all()`` here.  The JAX package builds the mixed forms only where a
+kernel path exists (a TPU, or interpret mode); this package always has one
+and decides as the TPU does.
 """
 
 from __future__ import annotations
@@ -18,21 +28,45 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._ref import ArithBuildError, build_arith_prefix_spec, build_arith_spec
 from ..device import resolve_device
+from .arith import ArithBuildError, build_arith_prefix_spec, build_arith_spec
 from .arith_decoder import ArithLUTDecoder, as_labels
 from .fast_decoder import FastLUTDecoder
 
-__all__ = ["HybridLUTDecoder", "seam_labels", "root_levels",
-           "mixed_arith_applies"]
+__all__ = ["HybridLUTDecoder", "MixedArithDecoder", "seam_labels",
+           "seam_values", "seam_bits_unan", "root_levels"]
 
 
 def seam_labels(m_vals: torch.Tensor, table) -> torch.Tensor:
-    """Values (entries of the strictly monotone `table`) -> int32 labels."""
-    lab = torch.zeros(m_vals.shape, dtype=torch.int32, device=m_vals.device)
-    for k in range(1, len(table)):
-        lab += (m_vals >= table[k]).to(torch.int32)
-    return lab
+    """Values (entries of the strictly monotone `table`) -> int32 labels:
+    the number of entries table[1:] that a value reaches."""
+    return torch.bucketize(m_vals, table[1:].to(m_vals.dtype), right=True,
+                           out_int32=True)
+
+
+def seam_values(m_vals: torch.Tensor, table_from, table_to) -> torch.Tensor:
+    """Exact value re-embedding between two specs: entries of `table_from`
+    -> the entries of `table_to` with the same labels (a label-preserving
+    monotone map; hybrid.py:234-237)."""
+    lab = seam_labels(m_vals, table_from)
+    return table_to.index_select(0, lab.reshape(-1)).reshape(lab.shape)
+
+
+def seam_bits_unan(layout, m_edges: torch.Tensor):
+    """Hard decisions (nvar_pad, B) int8 and per-frame sign unanimity from
+    std-grouped per-edge VN-output values: the data the VN pass emits,
+    recomputed at a precision seam (re-embedding preserves signs, so this
+    equals the previous segment's final VN outputs; hybrid.py:69).  Padding
+    rows take no part in the unanimity."""
+    B = m_edges.shape[1]
+    bits = []
+    unan = torch.ones(B, dtype=torch.bool, device=m_edges.device)
+    for blk in layout.vn_blocks:
+        d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
+        neg = m_edges[e0 : e0 + n * d].reshape(d, n, B) < 0
+        unan &= (neg == neg[:1])[:, : blk.num_nodes].all(dim=0).all(dim=0)
+        bits.append(neg[0].to(torch.int8))
+    return torch.cat(bits, dim=0), unan
 
 
 def root_levels(spec, it):
@@ -51,35 +85,14 @@ def _prefix(codec, dtype):
         return None
 
 
-def _seam_ok(spec16, spec32, S16) -> bool:
+def _seam_tables(spec16, spec32, S16, device):
+    """The two specs' value tables entering iteration S16, as tensors, or
+    None where they cannot be inverted label for label."""
     t16, t32 = root_levels(spec16, S16), root_levels(spec32, S16)
-    return t16 is not None and t32 is not None and len(t16) == len(t32)
-
-
-def _mid_applies(spec16, spec32) -> bool:
-    """Where the JAX HybridLUTDecoder builds its f32 middle segment (with a
-    kernel path available, as on its TPU)."""
-    return (spec16 is not None and spec32 is not None
-            and spec32.num_iters > spec16.num_iters
-            and _seam_ok(spec16, spec32, spec16.num_iters))
-
-
-def mixed_arith_applies(codec, min_prefix: int = 8) -> bool:
-    """Where the JAX make_decoder would return a MixedArithDecoder
-    (hybrid.py:258): int16 prefix of at least min_prefix iterations, a
-    longer full f32 spec, and invertible seam tables."""
-    if getattr(codec.graph, "qc_phantoms", ()):
-        return False
-    spec16 = _prefix(codec, np.int16)
-    if spec16 is None:
-        return False
-    try:
-        spec32 = build_arith_spec(codec, dtype=np.float32)
-    except ArithBuildError:
-        return False
-    return (spec16.num_iters < spec32.num_iters
-            and spec16.num_iters >= min_prefix
-            and _seam_ok(spec16, spec32, spec16.num_iters))
+    if t16 is None or t32 is None or len(t16) != len(t32):
+        return None
+    return (torch.as_tensor(t16, device=device),
+            torch.as_tensor(t32, device=device))
 
 
 class HybridLUTDecoder:
@@ -87,8 +100,9 @@ class HybridLUTDecoder:
     covers a prefix.  Raises ArithBuildError when no prefix exists,
     ValueError when the table tail cannot be built (callers fall back).
 
-    kernels: False runs the prefix through the plain twins (comparison
-    path).  tail_runs counts the calls that took the table tail."""
+    kernels: False runs the value-domain segments through the plain twins
+    (comparison path).  tail_runs counts the calls that took the table
+    tail, mid_runs those that took the float32 middle segment."""
 
     def __init__(self, codec, device, early_exit: bool = True,
                  kernels: bool = True):
@@ -103,21 +117,32 @@ class HybridLUTDecoder:
         spec32 = _prefix(codec, np.float32)
         if spec16 is None and spec32 is None:
             raise ArithBuildError("no valid arithmetic prefix")
-        if _mid_applies(spec16, spec32):
-            raise NotImplementedError(
-                "hybrid with an f32 middle segment after the int16 prefix: "
-                "ROADMAP A5")
-        # single-spec policy: int16 (half the traffic) unless f32 validates
-        # a longer prefix
-        spec = spec16
-        if spec is None or (spec32 is not None
-                            and spec32.num_iters > spec.num_iters):
-            spec = spec32
-        self.pre = ArithLUTDecoder(codec, self.device, early_exit=True,
-                                   spec=spec, kernels=kernels)
+        # mixed-precision middle segment: where f32 extends the int16
+        # coverage and the seam tables are invertible
+        self.mid = seam = None
+        if (spec16 is not None and spec32 is not None
+                and spec32.num_iters > spec16.num_iters):
+            seam = _seam_tables(spec16, spec32, spec16.num_iters, self.device)
+        if seam is not None:
+            self.pre = ArithLUTDecoder(codec, self.device, early_exit=True,
+                                       spec=spec16, kernels=kernels)
+            self.mid = ArithLUTDecoder(codec, self.device, early_exit=True,
+                                       spec=spec32, kernels=kernels)
+            self._seam16, self._seam32 = seam
+            spec = spec32  # tail tables come from the f32 spec
+        else:
+            # single-spec policy: int16 (half the traffic) unless f32
+            # validates a longer prefix
+            spec = spec16
+            if spec is None or (spec32 is not None
+                                and spec32.num_iters > spec.num_iters):
+                spec = spec32
+            self.pre = ArithLUTDecoder(codec, self.device, early_exit=True,
+                                       spec=spec, kernels=kernels)
         self.fast = FastLUTDecoder(codec, self.device, early_exit=True)
-        self.S = spec.num_iters
+        self.S = spec.num_iters  # iterations covered before the table tail
         self.tail_runs = 0
+        self.mid_runs = 0
 
         table = root_levels(spec, self.S)
         if table is None:
@@ -138,6 +163,14 @@ class HybridLUTDecoder:
         cha = as_labels(llr_cha, self.device, self.codec.nvar)
         msg = as_labels(llr_msg, self.device, self.codec.nvar)
         m_vals, done, latched, iters = self.pre.raw_carry(cha, msg)
+        if self.mid is not None and not bool(done.all()):
+            self.mid_runs += 1
+            v32 = seam_values(m_vals, self._seam16, self._seam32)
+            del m_vals
+            bits_p, unan_p = seam_bits_unan(self.mid.layout, v32)
+            m_vals, done, latched, iters = self.mid.resume(
+                self.pre.S, cha, v32, bits_p, unan_p, done, latched, iters,
+                raw=True)
         if bool(done.all()):
             bits = latched[self.pre.ten.vn_node_pos].T
             return bits, done, iters
@@ -147,3 +180,60 @@ class HybridLUTDecoder:
         latched_f = latched[self._f2a_node].T
         return self.fast.tail(self.S, m_f, self.fast.cha_blocks(cha), done,
                               latched_f, iters)
+
+
+class MixedArithDecoder:
+    """Full-budget arithmetic decoder with an int16 front segment, for
+    codecs whose full float32 spec validates but whose int16 spec covers
+    only a prefix (the N=64800 codes: 43 of 50).  Raises ArithBuildError
+    when the composition is unavailable (callers fall back), ValueError
+    only for early_exit=False.
+
+    kernels: False runs both segments through the plain twins.  fin_runs
+    counts the calls whose float32 segment ran."""
+
+    MIN_PREFIX = 8  # shorter int16 prefixes do not pay for the seam
+
+    def __init__(self, codec, device, early_exit: bool = True,
+                 kernels: bool = True):
+        if getattr(codec.graph, "qc_phantoms", ()):
+            raise ArithBuildError(
+                "phantom-completed graphs: mixed-precision seam is not "
+                "phantom-aware")
+        if not early_exit:
+            raise ValueError("mixed arith decoding requires early exit")
+        self.codec = codec
+        self.device = resolve_device(device)
+        spec16 = build_arith_prefix_spec(codec, dtype=np.int16)
+        spec32 = build_arith_spec(codec, dtype=np.float32)  # full spec
+        S16 = spec16.num_iters
+        if S16 >= spec32.num_iters:
+            raise ArithBuildError(
+                "int16 covers the full budget; use the plain decoder")
+        if S16 < self.MIN_PREFIX:
+            raise ArithBuildError("int16 prefix too short to pay for the "
+                                  "precision seam")
+        seam = _seam_tables(spec16, spec32, S16, self.device)
+        if seam is None:
+            raise ArithBuildError("seam value tables not invertible")
+        self.pre = ArithLUTDecoder(codec, self.device, early_exit=True,
+                                   spec=spec16, kernels=kernels)
+        self.fin = ArithLUTDecoder(codec, self.device, early_exit=True,
+                                   spec=spec32, kernels=kernels)
+        self.S16 = S16
+        self.S = spec32.num_iters
+        self._seam16, self._seam32 = seam
+        self.fin_runs = 0
+
+    def __call__(self, llr_cha, llr_msg):
+        cha = as_labels(llr_cha, self.device, self.codec.nvar)
+        msg = as_labels(llr_msg, self.device, self.codec.nvar)
+        m16, done, latched, iters = self.pre.raw_carry(cha, msg)
+        if bool(done.all()):
+            return latched[self.pre.ten.vn_node_pos].T, done, iters
+        self.fin_runs += 1
+        v32 = seam_values(m16, self._seam16, self._seam32)
+        del m16
+        bits_p, unan_p = seam_bits_unan(self.fin.layout, v32)
+        return self.fin.resume(self.S16, cha, v32, bits_p, unan_p, done,
+                               latched, iters)

@@ -1,7 +1,7 @@
 """Carry-over of the numpy decoder description to device tensors.
 
-Everything here is built once per decoder from the shared numpy objects
-(``ArithSpec`` and ``GroupedLayout``/``QCPlan`` of the reference package):
+Everything here is built once per decoder from the numpy objects
+(``ArithSpec`` of ``arith``, ``GroupedLayout``/``QCPlan`` of ``fast_layout``):
 
 - ``vn_params``: the per-iteration VN op parameters, stacked the way
   lut_ldpc_tpu/decoder/arith_decoder.py:259-344 stacks them and keyed the
@@ -12,6 +12,10 @@ Everything here is built once per decoder from the shared numpy objects
 - ``qc_tables``: the circulant row tables of both passes (per CN block-row
   and slot: source base, roll, destination base; per VN block-column: node
   base and the same per slot), and the gather indices of the plain twins;
+- ``std_tables``: the same two passes for a graph without circulant
+  structure (per degree class: node start, padded and real node counts,
+  degree and edge start of its slot planes) and the two row-gather
+  permutations between the VN- and CN-grouped orders;
 - ``arith_tensors``: the leaf value tables and the layout index maps;
 - ``fast_tables``: the label-domain table-decoder tables
   (fast_decoder.py:135-243).
@@ -27,15 +31,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._ref import fast_layout, layout as tree_layout
+from . import fast_layout, layout as tree_layout
+from .arith import loo_msg_spans
 
-__all__ = ["VNOp", "VNClass", "VNParams", "QCTables", "ArithTensors",
-           "FastTables", "torch_dtype", "vn_params", "qc_tables",
-           "arith_tensors", "fast_tables"]
+__all__ = ["VNOp", "VNClass", "VNParams", "QCTables", "StdTables",
+           "ArithTensors", "FastTables", "torch_dtype", "vn_params",
+           "qc_tables", "std_tables", "arith_tensors", "fast_tables"]
 
 # per-op row in VNParams.op_info
-OP_INFO_COLS = 5  # operand start, operand count, nthr, flags, param offset
-FLAG_SYM, FLAG_TIE = 1, 2
+# operand start, operand count, nthr, flags, param offset, and the inclusive
+# span of message-leaf positions under the op (-1, -1: channel leaf only)
+OP_INFO_COLS = 7
+FLAG_SYM, FLAG_TIE, FLAG_SORTED = 1, 2, 4
 
 
 def torch_dtype(np_dtype) -> torch.dtype:
@@ -64,8 +71,12 @@ class VNOp:
     nthr: int        # thresholds in the emission chain (magnitude ones if sym)
     sym: bool        # chain on |s|, sign restored
     has_tie: bool    # s == 0 emits tie_lo / tie_hi by the last operand's sign
+    # thresholds ascend in every iteration: the select chain then picks
+    # levels[number of thresholds reached], which a kernel may search for
+    sorted_thr: bool
     fp: bool         # float_params op (center-pair repair inside an int16 spec)
     off: int         # offset of [thr, levels, tie_lo, tie_hi] in a param row
+    span: tuple      # (lo, hi) message-leaf positions under the op, or (-1, -1)
 
 
 @dataclass(frozen=True)
@@ -74,8 +85,8 @@ class VNClass:
     num_inputs: int  # d - 1 message leaves + the channel leaf (DFS-last)
     ops: tuple
     # the first op sums all message leaves of an integer spec: the JAX
-    # kernels compute it as total-minus-self (same values); kept for a
-    # later kernel, the current one evaluates every sum in full
+    # kernels compute it as total-minus-self (same values on the integer
+    # grid); the CUDA kernels and their twins evaluate every sum in full
     use_tot: bool
 
 
@@ -89,7 +100,7 @@ class VNParams:
     op_info: torch.Tensor   # (total_ops * OP_INFO_COLS,) int32
     opnds: torch.Tensor     # (total_operands,) int32
     num_iters: int
-    max_vals: int           # largest num_inputs + len(ops) over classes
+    max_ops: int            # most ops in one class tree
 
 
 def vn_params(spec, lay, device) -> VNParams:
@@ -109,6 +120,7 @@ def vn_params(spec, lay, device) -> VNParams:
         di = spec_di[bi]
         struct = spec.var_trees[0][di]
         ops = []
+        spans = loo_msg_spans(struct)
         for oi, op in enumerate(struct.ops):
             sps = [spec.var_trees[ii][di].ops[oi] for ii in range(S)]
             sym = all(sp.sym_thr is not None for sp in sps)
@@ -121,7 +133,9 @@ def vn_params(spec, lay, device) -> VNParams:
             ops.append(VNOp(operands=tuple(int(x) for x in op.operands),
                             nthr=nthr, sym=sym,
                             has_tie=any(sp.has_zero for sp in sps),
-                            fp=any(sp.float_params for sp in sps), off=off))
+                            sorted_thr=bool(np.all(np.diff(thr, axis=1) >= 0)),
+                            fp=any(sp.float_params for sp in sps), off=off,
+                            span=spans[oi] or (-1, -1)))
             cols.append(np.concatenate([thr, lev, ties], axis=1))
             off += 2 * nthr + 3
         d = blk.degree
@@ -139,8 +153,10 @@ def vn_params(spec, lay, device) -> VNParams:
         nops.append(len(c.ops))
         degs.append(c.degree)
         for op in c.ops:
-            flags = (FLAG_SYM if op.sym else 0) | (FLAG_TIE if op.has_tie else 0)
-            op_info += [len(opnds), len(op.operands), op.nthr, flags, op.off]
+            flags = ((FLAG_SYM if op.sym else 0) | (FLAG_TIE if op.has_tie else 0)
+                     | (FLAG_SORTED if op.sorted_thr else 0))
+            op_info += [len(opnds), len(op.operands), op.nthr, flags, op.off,
+                        *op.span]
             opnds += list(op.operands)
     return VNParams(
         classes=tuple(classes),
@@ -148,7 +164,7 @@ def vn_params(spec, lay, device) -> VNParams:
         cls_deg=_i32(degs, device), cls_op0=_i32(op0, device),
         cls_nops=_i32(nops, device), op_info=_i32(op_info, device),
         opnds=_i32(opnds, device), num_iters=S,
-        max_vals=max(c.num_inputs + len(c.ops) for c in classes))
+        max_ops=max(len(c.ops) for c in classes))
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +262,6 @@ def qc_tables(plan, lay, device) -> QCTables:
                          _i64(rows(vn_dst, vzero, lo, hi, d), device),
                          _i64(node, device)))
 
-    def real_rows(blocks):
-        return np.concatenate([
-            blk.edge_start + k * blk.n_pad + np.arange(blk.num_nodes)
-            for blk in blocks for k in range(blk.degree)])
-
     return QCTables(
         Z=Z, rows_cn=lay.num_edges_cn, rows_vn=lay.num_edges_vn,
         nvar_pad=lay.nvar_pad, max_dc=max_dc, max_dv=max_dv,
@@ -259,11 +270,73 @@ def qc_tables(plan, lay, device) -> QCTables:
         vn_src=_i32(vn_src, device), vn_shift=_i32(vn_shift, device),
         vn_dst=_i32(vn_dst, device), vn_node=_i32(vn_node, device),
         vn_cls=_i32(vn_cls, device), cn_plain=cn_plain, vn_plain=vn_plain,
-        cn_real=_i64(real_rows(lay.cn_blocks), device),
-        vn_real=_i64(real_rows(lay.vn_blocks), device),
-        node_real=_i64(np.concatenate([
-            blk.node_start + np.arange(blk.num_nodes)
-            for blk in lay.vn_blocks]), device))
+        cn_real=_i64(_real_rows(lay.cn_blocks), device),
+        vn_real=_i64(_real_rows(lay.vn_blocks), device),
+        node_real=_i64(_real_nodes(lay.vn_blocks), device))
+
+
+# ---------------------------------------------------------------------------
+# std-layout tables (graphs without circulant structure)
+# ---------------------------------------------------------------------------
+STD_CLS_COLS = 5  # node_start, n_pad, num_nodes, degree, edge_start
+
+
+@dataclass
+class StdTables:
+    rows_cn: int     # CN-grouped edge rows (slot-major, padded)
+    rows_vn: int     # VN-grouped edge rows
+    nvar_pad: int
+    nchk_pad: int
+    max_dc: int
+    max_dv: int
+    # per degree class (node_start, n_pad, num_nodes, degree, edge_start):
+    # node row g of class c, slot k lives at edge row
+    # edge_start + k * n_pad + (g - node_start); rows with
+    # g - node_start >= num_nodes are padding
+    cn_cls: torch.Tensor   # (C_cn * STD_CLS_COLS,) int32
+    vn_cls: torch.Tensor   # (C_vn * STD_CLS_COLS,) int32
+    cn_blocks: tuple       # the layout's Block records (plain twins)
+    vn_blocks: tuple
+    # row gathers: m_cn = m_vn[perm_v2c], m_vn = m_cn[perm_c2v]
+    # (arith_decoder.py _permute_v2c / _permute_c2v without a QC plan);
+    # padding rows point at row 0
+    perm_v2c: torch.Tensor  # (rows_cn,) int32
+    perm_c2v: torch.Tensor  # (rows_vn,) int32
+    # real (non-padding) rows, for comparisons
+    cn_real: torch.Tensor
+    vn_real: torch.Tensor
+    node_real: torch.Tensor
+
+
+def _real_rows(blocks) -> np.ndarray:
+    return np.concatenate([
+        blk.edge_start + k * blk.n_pad + np.arange(blk.num_nodes)
+        for blk in blocks for k in range(blk.degree)])
+
+
+def _real_nodes(blocks) -> np.ndarray:
+    return np.concatenate([blk.node_start + np.arange(blk.num_nodes)
+                           for blk in blocks])
+
+
+def std_tables(lay, device) -> StdTables:
+    """Kernel and twin tables of the slot-major layout `lay` for the
+    std-layout passes."""
+    def cls(blocks):
+        return _i32([[b.node_start, b.n_pad, b.num_nodes, b.degree,
+                      b.edge_start] for b in blocks], device).reshape(-1)
+
+    return StdTables(
+        rows_cn=lay.num_edges_cn, rows_vn=lay.num_edges_vn,
+        nvar_pad=lay.nvar_pad, nchk_pad=lay.nchk_pad,
+        max_dc=max(b.degree for b in lay.cn_blocks),
+        max_dv=max(b.degree for b in lay.vn_blocks),
+        cn_cls=cls(lay.cn_blocks), vn_cls=cls(lay.vn_blocks),
+        cn_blocks=tuple(lay.cn_blocks), vn_blocks=tuple(lay.vn_blocks),
+        perm_v2c=_i32(lay.perm_v2c, device), perm_c2v=_i32(lay.perm_c2v, device),
+        cn_real=_i64(_real_rows(lay.cn_blocks), device),
+        vn_real=_i64(_real_rows(lay.vn_blocks), device),
+        node_real=_i64(_real_nodes(lay.vn_blocks), device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,19 @@
-"""CN and VN passes of the quasi-cyclic value-domain decode.
+"""CN and VN passes of the value-domain decode.
 
-``cn_qc_pass`` and ``vn_qc_pass`` take CUDA tensors to the hand-written
-Hopper kernels of ``lut_ldpc_torch/csrc/qc_kernels.cu`` and CPU tensors to
-their plain-torch twins ``cn_qc_pass_ref`` / ``vn_qc_pass_ref``, which sit
-beside them and compute the same values.  A CUDA tensor never falls back
-to a twin: the kernel launches or the wrapper raises.
+``cn_qc_pass`` / ``vn_qc_pass`` (quasi-cyclic graphs) and ``cn_std_pass`` /
+``vn_std_pass`` (graphs without circulant structure) take CUDA tensors to
+the hand-written Hopper kernels of ``lut_ldpc_torch/csrc/qc_kernels.cu``
+and CPU tensors to their plain-torch twins ``*_ref``, which sit beside them
+and compute the same values.  A CUDA tensor never falls back to a twin:
+the kernel launches or the wrapper raises.
 
-They replace lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass (:549) and
-::vn_qc_pass (:873), computing what those compute on the standard
-slot-major grouped layout (no halo planes): messages (rows, B), frame axis
-contiguous, every circulant shift a modular row index in the load.
+They replace lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass (:549),
+::vn_qc_pass (:873), ::cn_std_pass (:1206) and ::vn_std_pass (:1353),
+computing what those compute on the standard slot-major grouped layout (no
+halo planes, no tile schedule): messages (rows, B), frame axis contiguous.
+On a QC graph every circulant shift is a modular row index in the load; on
+a std graph each degree class is a run of contiguous slot planes and the
+permutation between the two groupings is a row gather done by the caller.
 
 The CUDA source is compiled with nvcc at first use into
 ``build/torch_kernels/`` (a shared library with a plain C interface,
@@ -28,29 +32,42 @@ import time
 
 import torch
 
-from .params import QCTables, VNParams
+from .params import QCTables, StdTables, VNParams
 
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
-           "build_kernels", "LAUNCHES", "reset_launches", "KERNEL_SOURCE"]
+           "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
+           "build_kernels", "LAUNCHES", "LAUNCHES_BY_DTYPE", "reset_launches",
+           "KERNEL_SOURCE"]
 
 _PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PKG_ROOT, "csrc", "qc_kernels.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_ROOT), "build", "torch_kernels")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libqc_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
 MAX_DEGREE = 32  # widest row table the kernels are instantiated for
-MAX_TREE_VALS = 64  # leaves + ops of one VN tree (kMaxVals in the source)
+MAX_TREE_OPS = 32  # ops of one VN tree (kMaxOps in the source)
 
-LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0}
+# kernel launches per wrapper, and the same split by message dtype
+LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
+            "vn_std_pass": 0}
+LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
+                     for dt in ("int16", "float32")}
 
 _lock = threading.Lock()
 _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE):
+        for k in counts:
+            counts[k] = 0
+
+
+def _launched(name: str, dtype: torch.dtype) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_DTYPE[name, str(dtype).removeprefix("torch.")] += 1
 
 
 def _nvcc() -> str:
@@ -62,10 +79,10 @@ def _nvcc() -> str:
 
 def build_kernels(force: bool = False) -> tuple:
     """Compile the kernel library if missing or older than its source;
-    returns (library path, seconds spent compiling)."""
+    returns (library path, seconds spent compiling, ptxas -v report)."""
     if (not force and os.path.exists(_LIB_PATH)
             and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)):
-        return _LIB_PATH, 0.0
+        return _LIB_PATH, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -74,20 +91,25 @@ def build_kernels(force: bool = False) -> tuple:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH, time.perf_counter() - t0
+    return _LIB_PATH, time.perf_counter() - t0, proc.stderr
 
 
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            path, _ = build_kernels()
+            path = build_kernels()[0]
             lib = ctypes.CDLL(path)
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.lut_cn_qc_pass.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
             lib.lut_cn_qc_pass.restype = i
             lib.lut_vn_qc_pass.argtypes = ([i] + [p] * 16 + [i] * 6 + [p])
             lib.lut_vn_qc_pass.restype = i
+            lib.lut_cn_std_pass.argtypes = [i, p, p, p, p, i, i, i, i, p]
+            lib.lut_cn_std_pass.restype = i
+            lib.lut_vn_std_pass.argtypes = ([i] + [p] * 6 + [i] + [p] * 5
+                                            + [i] * 5 + [p])
+            lib.lut_vn_std_pass.restype = i
             _lib = lib
         return _lib
 
@@ -111,8 +133,8 @@ def _check_msgs(m, rows, device):
     _check("messages", m, m.dtype, m.shape, device)
 
 
-def _check_grid(rows, Z, B):
-    if rows * Z * -(-B // 256) >= 2**31:
+def _check_grid(nodes, B):
+    if nodes * -(-B // 256) >= 2**31:
         raise ValueError("grid too large for one launch")
 
 
@@ -128,6 +150,24 @@ def _raise_on(err: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 # CN pass
 # ---------------------------------------------------------------------------
+def _cn_compute(x: torch.Tensor):
+    """Min-LUT CN update of x (d, n, B) in float32: (outputs (d, n, B)
+    float32, parity of the input signs (n, B) bool).  Every slot whose
+    magnitude equals min1 sees min2 (the kernels' form)."""
+    x = x.to(torch.float32)
+    neg = x < 0
+    mag = x.abs()
+    par = neg[0].clone()
+    min1 = mag[0].clone()
+    min2 = torch.full_like(min1, float("inf"))
+    for k in range(1, x.shape[0]):
+        par ^= neg[k]
+        min2 = torch.minimum(min2, torch.maximum(min1, mag[k]))
+        min1 = torch.minimum(min1, mag[k])
+    tmp = torch.where(mag == min1, min2, min1)
+    return torch.where(par ^ neg, -tmp, tmp), par
+
+
 def cn_qc_pass_ref(m_vn: torch.Tensor, tables: QCTables):
     """Plain-torch twin of the CN kernel: m_vn (rows_vn, B) -> (m_cn
     (rows_cn, B) same dtype, synd_ok (B,) bool).  Padding rows of m_cn are
@@ -136,18 +176,8 @@ def cn_qc_pass_ref(m_vn: torch.Tensor, tables: QCTables):
     m_cn = torch.empty((tables.rows_cn, B), dtype=m_vn.dtype, device=m_vn.device)
     synd = torch.ones(B, dtype=torch.bool, device=m_vn.device)
     for src, dst in tables.cn_plain:
-        x = m_vn[src.reshape(-1)].reshape(*src.shape, B).to(torch.float32)
-        neg = x < 0
-        mag = x.abs()
-        par = neg[0].clone()
-        min1 = mag[0].clone()
-        min2 = torch.full_like(min1, float("inf"))
-        for k in range(1, x.shape[0]):
-            par ^= neg[k]
-            min2 = torch.minimum(min2, torch.maximum(min1, mag[k]))
-            min1 = torch.minimum(min1, mag[k])
-        tmp = torch.where(mag == min1, min2, min1)
-        out = torch.where(par ^ neg, -tmp, tmp)
+        x = m_vn[src.reshape(-1)].reshape(*src.shape, B)
+        out, par = _cn_compute(x)
         m_cn[dst.reshape(-1)] = out.reshape(-1, B).to(m_vn.dtype)
         synd &= ~par.any(dim=0)
     return m_cn, synd
@@ -166,7 +196,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables):
     if tables.max_dc > MAX_DEGREE:
         raise ValueError(f"check degree {tables.max_dc} > {MAX_DEGREE}")
     R = tables.cn_src.shape[0]
-    _check_grid(R, tables.Z, B)
+    _check_grid(R * tables.Z, B)
     m_cn = torch.empty((tables.rows_cn, B), dtype=m_vn.dtype, device=dev)
     synd = torch.ones(B, dtype=torch.bool, device=dev)
     err = _load().lut_cn_qc_pass(
@@ -175,7 +205,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables):
         tables.cn_dst.data_ptr(), tables.cn_deg.data_ptr(), R, tables.Z,
         tables.max_dc, B, _stream(dev))
     _raise_on(err, "cn_qc_pass")
-    LAUNCHES["cn_qc_pass"] += 1
+    _launched("cn_qc_pass", m_vn.dtype)
     return m_cn, synd
 
 
@@ -214,6 +244,26 @@ def eval_vn_tree(cls, leaves, prm):
     return vals[-1]
 
 
+def _vn_compute(cls, msg, ch, prm):
+    """The d leave-one-out outputs of one class: msg (d, n, B), ch (n, B),
+    prm the iteration's parameter row -> (list of d (n, B) float32 outputs,
+    sign of output 0, agreement of all output signs or None for d == 1)."""
+    msg = msg.to(torch.float32)
+    ch = ch.to(torch.float32)
+    d = cls.degree
+    outs, neg0, agree = [], None, None
+    for i in range(d):
+        leaves = [msg[j] if j < i else msg[j + 1] for j in range(d - 1)]
+        out = eval_vn_tree(cls, leaves + [ch], prm)
+        outs.append(out)
+        ni = out < 0
+        if neg0 is None:
+            neg0 = ni
+        else:
+            agree = (ni == neg0) if agree is None else agree & (ni == neg0)
+    return outs, neg0, agree
+
+
 def vn_qc_pass_ref(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
                    params: VNParams, tables: QCTables):
     """Plain-torch twin of the VN kernel: m_cn (rows_cn, B), cha
@@ -228,23 +278,25 @@ def vn_qc_pass_ref(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
     prm = params.prm[it]
     for ci, src, dst, node in tables.vn_plain:
         cls = params.classes[ci]
-        d = cls.degree
-        msg = m_cn[src.reshape(-1)].reshape(d, -1, B).to(torch.float32)
-        ch = cha[node].to(torch.float32)
-        neg0 = agree = None
-        for i in range(d):
-            leaves = [msg[j] if j < i else msg[j + 1] for j in range(d - 1)]
-            out = eval_vn_tree(cls, leaves + [ch], prm)
+        msg = m_cn[src.reshape(-1)].reshape(cls.degree, -1, B)
+        outs, neg0, agree = _vn_compute(cls, msg, cha[node], prm)
+        for i, out in enumerate(outs):
             m_vn[dst[i]] = out.to(m_cn.dtype)
-            ni = out < 0
-            if neg0 is None:
-                neg0 = ni
-            else:
-                agree = (ni == neg0) if agree is None else agree & (ni == neg0)
         bits[node] = neg0.to(torch.int8)
         if agree is not None:
             unan &= agree.all(dim=0)
     return m_vn, bits, unan
+
+
+def _check_vn_limits(params: VNParams, max_dv: int, dev) -> None:
+    """What the VN kernels are instantiated for: a wider degree or a deeper
+    tree raises (the kernel would otherwise overrun its value arrays)."""
+    if max_dv > MAX_DEGREE:
+        raise ValueError(f"variable degree {max_dv} > {MAX_DEGREE}")
+    if params.max_ops > MAX_TREE_OPS:
+        raise ValueError(f"VN tree of {params.max_ops} ops > {MAX_TREE_OPS}")
+    if params.prm.device != dev:
+        raise ValueError(f"params on {params.prm.device}, expected {dev}")
 
 
 def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
@@ -263,14 +315,9 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
         raise IndexError(f"iteration {it} outside the spec's {params.num_iters}")
     if dev.type == "cpu":
         return vn_qc_pass_ref(m_cn, cha, it, params, tables)
-    if tables.max_dv > MAX_DEGREE:
-        raise ValueError(f"variable degree {tables.max_dv} > {MAX_DEGREE}")
-    if params.max_vals > MAX_TREE_VALS:
-        raise ValueError(f"VN tree of {params.max_vals} values > {MAX_TREE_VALS}")
-    if params.prm.device != dev:
-        raise ValueError(f"params on {params.prm.device}, expected {dev}")
+    _check_vn_limits(params, tables.max_dv, dev)
     R = tables.vn_src.shape[0]
-    _check_grid(R, tables.Z, B)
+    _check_grid(R * tables.Z, B)
     m_vn = torch.empty((tables.rows_vn, B), dtype=m_cn.dtype, device=dev)
     bits = torch.empty((tables.nvar_pad, B), dtype=torch.int8, device=dev)
     unan = torch.ones(B, dtype=torch.bool, device=dev)
@@ -285,5 +332,112 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
         params.prm.data_ptr(), int(it), params.prm.shape[1], R, tables.Z,
         tables.max_dv, B, _stream(dev))
     _raise_on(err, "vn_qc_pass")
-    LAUNCHES["vn_qc_pass"] += 1
+    _launched("vn_qc_pass", m_cn.dtype)
+    return m_vn, bits, unan
+
+
+# ---------------------------------------------------------------------------
+# std layout (graphs without circulant structure)
+# ---------------------------------------------------------------------------
+def _planes(m, blk, B):
+    """The real rows of a class's slot planes: (d, num_nodes, B) view."""
+    d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
+    return m[e0 : e0 + n * d].reshape(d, n, B)[:, : blk.num_nodes]
+
+
+def cn_std_pass_ref(m_cn: torch.Tensor, tables: StdTables):
+    """Plain-torch twin of the std CN kernel: m_cn (rows_cn, B), CN-grouped
+    -> (outputs in the same layout, synd_ok (B,) bool).  Padding rows take
+    no part in the syndrome and are left unwritten, as in the kernel."""
+    B = m_cn.shape[1]
+    out = torch.empty_like(m_cn)
+    synd = torch.ones(B, dtype=torch.bool, device=m_cn.device)
+    for blk in tables.cn_blocks:
+        o, par = _cn_compute(_planes(m_cn, blk, B))
+        _planes(out, blk, B).copy_(o.to(m_cn.dtype))
+        synd &= ~par.any(dim=0)
+    return out, synd
+
+
+def cn_std_pass(m_cn: torch.Tensor, tables: StdTables):
+    """CN pass on the CN-grouped slot-major array (already permuted):
+    min-LUT two-min and sign-parity update per degree class, per-frame
+    syndrome of the input signs over the real checks.  CUDA tensors launch
+    the kernel (replaces lut_ldpc_tpu/decoder/qc_kernels.py::cn_std_pass);
+    CPU tensors run cn_std_pass_ref."""
+    dev = m_cn.device
+    _check_msgs(m_cn, tables.rows_cn, tables.cn_cls.device)
+    if dev.type == "cpu":
+        return cn_std_pass_ref(m_cn, tables)
+    B = m_cn.shape[1]
+    if tables.max_dc > MAX_DEGREE:
+        raise ValueError(f"check degree {tables.max_dc} > {MAX_DEGREE}")
+    _check_grid(tables.nchk_pad, B)
+    out = torch.empty_like(m_cn)
+    synd = torch.ones(B, dtype=torch.bool, device=dev)
+    err = _load().lut_cn_std_pass(
+        int(m_cn.dtype == torch.float32), m_cn.data_ptr(), out.data_ptr(),
+        synd.data_ptr(), tables.cn_cls.data_ptr(), len(tables.cn_blocks),
+        tables.nchk_pad, tables.max_dc, B, _stream(dev))
+    _raise_on(err, "cn_std_pass")
+    _launched("cn_std_pass", m_cn.dtype)
+    return out, synd
+
+
+def vn_std_pass_ref(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
+                    params: VNParams, tables: StdTables):
+    """Plain-torch twin of the std VN kernel: m_c2v (rows_vn, B) VN-grouped
+    c2v values, cha (nvar_pad, B) -> (v2c values same layout, bits
+    (nvar_pad, B) int8, unan (B,) bool).  Padding rows take no part in the
+    unanimity and are left unwritten, as in the kernel."""
+    B = m_c2v.shape[1]
+    dev = m_c2v.device
+    m_vn = torch.empty_like(m_c2v)
+    bits = torch.empty((tables.nvar_pad, B), dtype=torch.int8, device=dev)
+    unan = torch.ones(B, dtype=torch.bool, device=dev)
+    prm = params.prm[it]
+    for cls, blk in zip(params.classes, tables.vn_blocks):
+        n0 = blk.node_start
+        outs, neg0, agree = _vn_compute(
+            cls, _planes(m_c2v, blk, B), cha[n0 : n0 + blk.num_nodes], prm)
+        _planes(m_vn, blk, B).copy_(torch.stack(outs).to(m_c2v.dtype))
+        bits[n0 : n0 + blk.num_nodes] = neg0.to(torch.int8)
+        if agree is not None:
+            unan &= agree.all(dim=0)
+    return m_vn, bits, unan
+
+
+def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
+                params: VNParams, tables: StdTables):
+    """VN pass for iteration `it` on the VN-grouped slot-major array
+    (already permuted): per-class leave-one-out threshold trees, hard bits
+    and per-frame sign unanimity over the real variables.  CUDA tensors
+    launch the kernel (replaces
+    lut_ldpc_tpu/decoder/qc_kernels.py::vn_std_pass); CPU tensors run
+    vn_std_pass_ref."""
+    dev = m_c2v.device
+    _check_msgs(m_c2v, tables.rows_vn, tables.vn_cls.device)
+    B = m_c2v.shape[1]
+    _check("cha", cha, m_c2v.dtype, (tables.nvar_pad, B), dev)
+    if not 0 <= it < params.num_iters:
+        raise IndexError(f"iteration {it} outside the spec's {params.num_iters}")
+    if [c.degree for c in params.classes] != [b.degree for b in tables.vn_blocks]:
+        raise ValueError("params and tables describe different degree classes")
+    if dev.type == "cpu":
+        return vn_std_pass_ref(m_c2v, cha, it, params, tables)
+    _check_vn_limits(params, tables.max_dv, dev)
+    _check_grid(tables.nvar_pad, B)
+    m_vn = torch.empty_like(m_c2v)
+    bits = torch.empty((tables.nvar_pad, B), dtype=torch.int8, device=dev)
+    unan = torch.ones(B, dtype=torch.bool, device=dev)
+    err = _load().lut_vn_std_pass(
+        int(m_c2v.dtype == torch.float32), m_c2v.data_ptr(), cha.data_ptr(),
+        m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+        tables.vn_cls.data_ptr(), len(tables.vn_blocks),
+        params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
+        params.op_info.data_ptr(), params.opnds.data_ptr(),
+        params.prm.data_ptr(), int(it), params.prm.shape[1],
+        tables.nvar_pad, tables.max_dv, B, _stream(dev))
+    _raise_on(err, "vn_std_pass")
+    _launched("vn_std_pass", m_c2v.dtype)
     return m_vn, bits, unan

@@ -1,11 +1,11 @@
 """``make_staged_decoder``: the early-exit decoder a caller should use.
 
 Keeps the JAX package's choice (lut_ldpc_tpu/decoder/staged.py:244-287):
-the ``make_decoder`` result when it is a full arithmetic or hybrid decoder
-whose whole batch fits the memory budget; otherwise the JAX package
-chunks the batch (``ChunkedDecoder``) or stages it on the host
-(``StagedLUTDecoder``), which this package does not have yet
-(NotImplementedError, ROADMAP A9).
+the ``make_decoder`` result when it is a full arithmetic, mixed or hybrid
+decoder whose whole batch fits the memory budget, the same decoder behind
+a ``ChunkedDecoder`` when only a part of the batch fits.  Where the JAX
+package would stage the batch on the host (``StagedLUTDecoder``) this
+package raises NotImplementedError (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -13,13 +13,38 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
-from .._ref import ArithBuildError, build_arith_prefix_spec
+from .arith import ArithBuildError, build_arith_prefix_spec
 from .arith_decoder import ArithLUTDecoder
 from .fast_decoder import make_decoder
-from .hybrid import HybridLUTDecoder
+from .hybrid import HybridLUTDecoder, MixedArithDecoder
 
-__all__ = ["make_staged_decoder"]
+__all__ = ["ChunkedDecoder", "make_staged_decoder"]
+
+
+class ChunkedDecoder:
+    """Split oversized batches into budget-sized chunks and run the inner
+    decoder per chunk (staged.py:214).  Frames are independent and the
+    inner decoder is deterministic, so outputs are bit-identical to one
+    full-batch call.  The short final chunk runs at its own width: eager
+    kernels take any batch width, so it needs none of the JAX package's
+    padding to a compiled shape."""
+
+    def __init__(self, inner, chunk: int):
+        if chunk < 1:
+            raise ValueError("chunk must be positive")
+        self.inner = inner
+        self.chunk = int(chunk)
+
+    def __call__(self, llr_cha, llr_msg):
+        B = llr_cha.shape[0]
+        if B <= self.chunk:
+            return self.inner(llr_cha, llr_msg)
+        outs = [self.inner(llr_cha[lo : lo + self.chunk],
+                           llr_msg[lo : lo + self.chunk])
+                for lo in range(0, B, self.chunk)]
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
 
 
 def _staged_builds(codec) -> bool:
@@ -51,13 +76,14 @@ def make_staged_decoder(codec, device, early_exit: bool = True,
     budget = int(os.environ.get("LUT_DECODE_MEM_BUDGET", 1 << 30))
     fit = budget // (g.num_edges * int(g.dv_vec.max()) * 2)
     full_arith = isinstance(dec, ArithLUTDecoder) and not dec.is_prefix
-    if full_arith or isinstance(dec, HybridLUTDecoder):
+    if full_arith or isinstance(dec, (HybridLUTDecoder, MixedArithDecoder)):
         if fit >= max_batch:
             return dec
         if fit >= 32:
-            raise NotImplementedError(
-                f"ChunkedDecoder (budget fits {fit} < {max_batch} frames): "
-                "ROADMAP A9")
+            chunk = 32
+            while chunk * 2 <= fit:
+                chunk *= 2
+            return ChunkedDecoder(dec, chunk)
     if _staged_builds(codec):
         raise NotImplementedError("StagedLUTDecoder: ROADMAP A9")
     return dec

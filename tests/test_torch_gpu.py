@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from lut_ldpc_torch import _ref
-from lut_ldpc_torch.decoder import ArithLUTDecoder, HybridLUTDecoder
+from lut_ldpc_torch.core import qc
+from lut_ldpc_torch.core.tanner import TannerGraph
+from lut_ldpc_torch.decoder import (ArithLUTDecoder, HybridLUTDecoder, LUTCodec,
+                                    MixedArithDecoder, build_arith_prefix_spec)
 from lut_ldpc_torch.decoder import qc_kernels as qk
 from lut_ldpc_torch.decoder.hybrid import root_levels
+from lut_ldpc_torch.ops.pmf import snr2sig
 
 pytestmark = pytest.mark.gpu
 
@@ -25,14 +28,13 @@ pytestmark = pytest.mark.gpu
 def codec():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    qc = _ref.qc.qc_generate_regular(3, 6, Z=40, nb=12, seed=3)
-    return _ref.LUTCodec.design(_ref.qc.qc_expand(qc), 0.85**2, max_iters=40,
-                                Nq_Cha=16, Nq_Msg=16)
+    g = qc.qc_expand(qc.qc_generate_regular(3, 6, Z=40, nb=12, seed=3))
+    return LUTCodec.design(g, 0.85**2, max_iters=40, Nq_Cha=16, Nq_Msg=16)
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
 def test_kernels_match_twins(codec, dtype):
-    spec = _ref.build_arith_prefix_spec(codec, dtype=dtype)
+    spec = build_arith_prefix_spec(codec, dtype=dtype)
     dec = ArithLUTDecoder(codec, "cuda", spec=spec)
     tab, it, B = dec.tables, spec.num_iters // 2, 300  # B not a multiple of 256
     rng = np.random.default_rng(0)
@@ -57,12 +59,68 @@ def test_kernels_match_twins(codec, dtype):
 
 
 def test_hybrid_kernel_path_matches_twin_path(codec):
-    sig = float(_ref.pmf.snr2sig(0.5, 1.5))
+    sig = float(snr2sig(0.5, 1.5))
     rng = np.random.default_rng(1)
     y = 1.0 + sig * rng.standard_normal((64, codec.nvar))
     lc, lm = codec.quantize_channel(2.0 * y / sig**2)
     lc, lm = torch.as_tensor(lc, device="cuda"), torch.as_tensor(lm, device="cuda")
     a = HybridLUTDecoder(codec, "cuda")(lc, lm)
     b = HybridLUTDecoder(codec, "cuda", kernels=False)(lc, lm)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def codec_peg():
+    """N=500 PEG code, 12 iterations: int16 validates 10, full f32 11."""
+    import os
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    g = TannerGraph.from_alist(os.path.join(
+        repo, "codes", "rate0.50_dv02-17_dc08-09_lut_q4_N500.alist"))
+    return LUTCodec.design(g, 0.80**2, max_iters=12, Nq_Cha=16, Nq_Msg=16)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+def test_std_kernels_match_twins(codec_peg, dtype):
+    spec = build_arith_prefix_spec(codec_peg, dtype=dtype)
+    dec = ArithLUTDecoder(codec_peg, "cuda", spec=spec)
+    assert dec.plan is None
+    tab, it, B = dec.tables, spec.num_iters // 2, 300  # B not a multiple of 256
+    rng = np.random.default_rng(0)
+    table = torch.as_tensor(root_levels(spec, it), device="cuda")
+    m = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_cn, B)),
+                              device="cuda")]
+    leaf = torch.as_tensor(np.asarray(spec.leaf_cha), device="cuda").to(m.dtype)
+    cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (tab.nvar_pad, B)),
+                               device="cuda")]
+    n0 = dict(qk.LAUNCHES)
+    m_cn, synd = qk.cn_std_pass(m, tab)
+    r_cn, r_synd = qk.cn_std_pass_ref(m, tab)
+    assert torch.equal(m_cn[tab.cn_real], r_cn[tab.cn_real])
+    assert torch.equal(synd, r_synd)
+    m_in = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_vn, B)),
+                                 device="cuda")]
+    out, bits, unan = qk.vn_std_pass(m_in, cha, it, dec.params, tab)
+    r_out, r_bits, r_unan = qk.vn_std_pass_ref(m_in, cha, it, dec.params, tab)
+    assert torch.equal(out[tab.vn_real], r_out[tab.vn_real])
+    assert torch.equal(bits[tab.node_real], r_bits[tab.node_real])
+    assert torch.equal(unan, r_unan)
+    assert qk.LAUNCHES["cn_std_pass"] == n0["cn_std_pass"] + 1
+    assert qk.LAUNCHES["vn_std_pass"] == n0["vn_std_pass"] + 1
+
+
+def test_mixed_kernel_path_matches_twin_path(codec_peg):
+    sig = float(snr2sig(0.5, 1.0))
+    rng = np.random.default_rng(1)
+    y = 1.0 + sig * rng.standard_normal((64, codec_peg.nvar))
+    lc, lm = codec_peg.quantize_channel(2.0 * y / sig**2)
+    lc, lm = torch.as_tensor(lc, device="cuda"), torch.as_tensor(lm, device="cuda")
+    dec = MixedArithDecoder(codec_peg, "cuda")
+    a = dec(lc, lm)
+    assert dec.fin_runs == 1
+    b = MixedArithDecoder(codec_peg, "cuda", kernels=False)(lc, lm)
     for x, y in zip(a, b):
         assert torch.equal(x, y)

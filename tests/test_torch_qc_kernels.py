@@ -195,4 +195,4 @@ def test_wrappers_check_inputs(codecs):
     with pytest.raises(IndexError):
         qk.vn_qc_pass(m_cn, torch.zeros((tab.nvar_pad, 4), dtype=torch.int16),
                       port.params.num_iters, port.params, tab)
-    assert qk.LAUNCHES == {"cn_qc_pass": 0, "vn_qc_pass": 0}  # CPU: twins only
+    assert all(v == 0 for v in qk.LAUNCHES.values())  # CPU: twins only
