@@ -16,16 +16,35 @@ Phases (each prints; any failure raises and exits non-zero):
     table tail runs on the card, checked the same way;
  6. the headline throughput (decoded information Mbit/s, B=8192, not cut)
     and one traced decode (device busy time, torch glue, idle share);
+    then worker processes start on the host: the PEG codec's GF(2) rank
+    and one golden-model frame each of the PEG and the DVB-S2 code (minutes
+    of host time at this size), read at the end;
  7. the std-layout kernels against their twins at the PEG N=64800 shapes
     (280277 edges, B=4096), int16 and float32 spec, a middle iteration;
-    meanwhile two worker processes take the codec's GF(2) rank and one
-    golden-model frame (minutes of host time at this size);
  8. the PEG decode through make_staged_decoder at 1.6 dB, B=4096 (a
     MixedArithDecoder: int16 kernels, then float32 kernels for the frames
     still undecided), with launch counts per kernel and dtype, checked
-    against the twin path on the card for the 512 slowest frames and
-    against the golden model for one frame;
- 9. the PEG throughput (decoded information Mbit/s).
+    against the twin path on the card for the 512 slowest frames;
+ 9. the PEG throughput (decoded information Mbit/s);
+10. the per-degree-block kernels against their plain versions at the
+    lut_ldpc_torch.profile_kernels shapes (headline codec, d=6 x 5000 checks,
+    d=3 x 10000 variables, B=4096) in both dtypes with single-call and
+    chained times, and on every degree block of the PEG codec (variable
+    degrees 2, 3, 9, 17; check degrees 8, 9, 10) at B=512;
+11. the block-loop decode of the headline batch (loop="blocks", the full
+    int16 prefix, B=8192): bits, ok and iters equal to the QC-kernel decode,
+    with its launch counts and time;
+12. a small phantom-completed graph whose phantom node has true degree 2
+    (only the block loop decodes it) on the card, against the golden model;
+13. the DVB-S2 standard matrix (Z=360 form, one phantom edge) through
+    make_staged_decoder at 1.6 dB, B=4096: class, launches by dtype, peak
+    memory, the first 256 frames against the twin path on the card, and the
+    throughput (3 calls after 2 warm-ups);
+14. the same matrix unpermuted (a degree-1 variable, no phantom) on the
+    std kernels, 512 of the same frames carried through the column
+    permutation: same ok and iters, same bits after un-permuting;
+15. the golden-model frames of the PEG and the DVB-S2 decode from the
+    workers.
 Then a JSON line of per-kernel results (time, plain twin's time, the
 card's bound for the same work), the card, and last the device line.
 """
@@ -35,33 +54,17 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
-CN_OPS_PER_EDGE = 13       # two-min + parity in, select + sign out
-
 SOURCE = "lut_ldpc_torch/csrc/qc_kernels.cu"
 REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "vn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:873",
             "cn_std_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:1206",
-            "vn_std_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:1353"}
+            "vn_std_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:1353",
+            "cn_block_pass": "lut_ldpc_tpu/decoder/pallas_kernels.py:115",
+            "vn_block_pass": "lut_ldpc_tpu/decoder/pallas_kernels.py:227"}
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def ptxas_summary(text):
@@ -71,7 +74,7 @@ def ptxas_summary(text):
 
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(r"((?:cn|vn)_(?:qc|std)_kernel)I([sf])Li(\d+)E", line)
+        m = re.search(r"((?:cn|vn)_(?:qc|std|block)_kernel)I([sf])Li(\d+)E", line)
         if m and "Compiling entry function" in line:
             name = f"{m.group(1)}<{'int16' if m.group(2) == 's' else 'float'}, {m.group(3)}>"
             stack = spill = "?"
@@ -115,18 +118,16 @@ def bounds(dec, B):
     """Per pass the least time the card could take: the larger of bytes moved
     (every real message row read once and written once, channel values read,
     bits written) over the memory rate and float32 operations over the
-    float32 rate.  Returns {"cn": (ms, by), "vn": (ms, by)}."""
+    float32 rate (the data-sheet rates of lut_ldpc_torch.profile_kernels).
+    Returns {"cn": (ms, by), "vn": (ms, by)}."""
+    from lut_ldpc_torch import profile_kernels as pk
+
     lay = dec.layout
     size = dec.dtype.itemsize
     E, nvar = lay.num_edges, lay.nvar
-    out = {}
-    for key, nbytes, ops in (
-            ("cn", 2 * E * B * size + B, CN_OPS_PER_EDGE * E * B),
-            ("vn", (2 * E + nvar) * B * size + nvar * B + B,
-             vn_ops_per_frame(dec.params, lay.vn_blocks) * B)):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        out[key] = (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
-    return out
+    return {"cn": pk.bound_ms(2 * E * B * size + B, pk.CN_OPS_PER_EDGE * E * B),
+            "vn": pk.bound_ms((2 * E + nvar) * B * size + nvar * B + B,
+                              vn_ops_per_frame(dec.params, lay.vn_blocks) * B)}
 
 
 def kernel_vs_twin(dec, it, seed, B):
@@ -137,6 +138,7 @@ def kernel_vs_twin(dec, it, seed, B):
 
     from lut_ldpc_torch.decoder import qc_kernels as qk
     from lut_ldpc_torch.decoder.hybrid import root_levels
+    from lut_ldpc_torch.profile_kernels import cuda_ms
 
     tab, prm, spec = dec.tables, dec.params, dec.spec
     dev = dec.device
@@ -324,11 +326,12 @@ def headline(dev, smi, results, launches):
     log(f"#   traced decode: wall {wall:.3f} ms, device span {span:.3f} ms, busy "
         f"{busy:.3f} ms (CN+VN kernels {kern:.3f}, torch glue {busy - kern:.3f}), "
         f"idle {100 * (1 - busy / span):.1f} % of the span")
+    return codec, dec, lc_d, lm_d
 
 
-def peg(dev, smi, codec, lc, lm, golden, rank, results, launches):
-    """Phases 7-9: the N=64800 PEG code of lut_ldpc_torch.bench_n64800."""
-    import numpy as np
+def peg(dev, smi, codec, lc, lm, rank, results, launches):
+    """Phases 7-9: the N=64800 PEG code of lut_ldpc_torch.bench_n64800;
+    returns frame 0's decoded bits and iteration count."""
     import torch
 
     from lut_ldpc_torch import bench, bench_n64800 as b64
@@ -380,12 +383,7 @@ def peg(dev, smi, codec, lc, lm, golden, rank, results, launches):
     log(f"#   twin path on the card, 512 slowest frames: identical bits, ok, iters "
         f"({time.perf_counter() - t0:.1f}s)")
     del twin, out_t
-    b_ref, it_ref, secs = golden.get()
-    itr = it_ref if it_ref > 0 else codec.max_iters
-    if (not np.array_equal(np.asarray(b_ref), out[0][0].cpu().numpy())
-            or itr != int(iters[0])):
-        raise AssertionError("PEG frame 0 differs from decode_ref")
-    log(f"#   frame 0: decode_ref agrees (iters {itr}, {secs:.1f}s in a worker process)")
+    frame0 = out[0][0].cpu().numpy(), int(iters[0])
 
     k, secs = rank.get()
     log(f"#   k={k} (GF(2) rank in {secs:.1f}s in a worker process)")
@@ -394,6 +392,186 @@ def peg(dev, smi, codec, lc, lm, golden, rank, results, launches):
     log(f"# phase 9: PEG N=64800 {mbits:.3f} Mbit/s ({dt_s * 1e3:.3f} ms per {B} frames, "
         f"mean iters {float(out[2].float().mean()):.4f}, ok {float(out[1].float().mean()):.6f}) "
         f"on {smi}")
+    return frame0
+
+
+def block_kernels(dev, head_codec, peg_codec, results):
+    """Phase 10: cn_block_pass / vn_block_pass against their plain versions."""
+    import numpy as np
+
+    from lut_ldpc_torch import profile_kernels as pk
+    from lut_ldpc_torch.decoder import ArithLUTDecoder, build_arith_prefix_spec
+
+    for dt in (np.int16, np.float32):
+        name = np.dtype(dt).name
+        spec = build_arith_prefix_spec(head_codec, dtype=dt)
+        dec = ArithLUTDecoder(head_codec, dev, spec=spec, loop="blocks")
+        for r in pk.check_blocks(dec, spec.num_iters // 2, 4096, chain=32):
+            log(f"# phase 10: {pk.describe(r, name)}")
+            key = f"{r['kind']}_block_pass"
+            if dt == np.int16:
+                results[key] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                    bound_by=r["bound_by"], library_ms=None)
+            else:
+                results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                                  r["max_abs_err"])
+        spec = build_arith_prefix_spec(peg_codec, dtype=dt)
+        dec = ArithLUTDecoder(peg_codec, dev, spec=spec, loop="blocks")
+        for r in pk.check_blocks(dec, spec.num_iters // 2, 512, reps=5, plain_reps=1):
+            log(f"# phase 10: PEG block B=512: {pk.describe(r, name)}")
+
+
+def block_loop(dev, smi, codec, dec, lc_d, lm_d, launches):
+    """Phase 11: the headline batch on the per-degree-block loop."""
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.decoder import ArithLUTDecoder
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    B = lc_d.shape[0]
+    blocks = ArithLUTDecoder(codec, dev, spec=dec.pre.spec, loop="blocks")
+    if blocks.loop != "blocks" or dec.pre.loop != "qc" or blocks.dtype != torch.int16:
+        raise AssertionError("expected the int16 prefix on the block loop and the QC loop")
+    qk.reset_launches()
+    out = blocks(lc_d, lm_d)
+    torch.cuda.synchronize()
+    for name in ("cn_block_pass", "vn_block_pass"):
+        launches[name] = qk.LAUNCHES[name]
+        if launches[name] < 1:
+            raise AssertionError(f"the block loop skipped {name}")
+    if qk.LAUNCHES["cn_qc_pass"] or qk.LAUNCHES["vn_qc_pass"]:
+        raise AssertionError("the block loop launched a QC kernel")
+    check_shapes(out, B, codec.nvar)
+    same(out, dec.pre(lc_d, lm_d), "block loop vs QC-kernel loop")
+    dt_s, _ = bench.time_decode(blocks, lc_d, lm_d, 3)
+    log(f"# phase 11: block loop S={blocks.S} B={B}: launches "
+        f"{ {n: launches[n] for n in ('cn_block_pass', 'vn_block_pass')} }, bits, ok "
+        f"and iters equal to the QC-kernel decode; ok {float(out[1].float().mean()):.6f}, "
+        f"mean iters {float(out[2].float().mean()):.4f}, {dt_s * 1e3:.3f} ms a decode "
+        f"({B * codec.k / dt_s / 1e6:.3f} Mbit/s) on {smi}")
+
+
+def phantom_toy(dev):
+    """Phase 12: a (3,6) QC graph with one phantom edge on a degree-3
+    variable (true degree 2): the block loop is the only loop for it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch.core import qc
+    from lut_ldpc_torch.decoder import ArithLUTDecoder, LUTCodec, make_decoder
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    Z = 16
+    st = qc.qc_generate_regular(3, 6, Z=Z, nb=8, seed=1)
+    i = int(np.nonzero(st.base[:, 0] >= 0)[0][0])
+    st = dataclasses.replace(st, phantoms=((0, 3, i, (3 + int(st.base[i, 0])) % Z),))
+    codec = LUTCodec.design(qc.qc_expand(st), 0.7**2, max_iters=8, Nq_Cha=16, Nq_Msg=16)
+    dec = make_decoder(codec, dev)
+    if not isinstance(dec, ArithLUTDecoder) or dec.loop != "blocks" or dec._ph[0]["td"] != 2:
+        raise AssertionError("expected the block loop for a true-degree-2 phantom node")
+    rng = np.random.default_rng(1)
+    y = 1.0 + 0.7 * rng.standard_normal((64, codec.nvar))
+    lc, lm = codec.quantize_channel(2.0 * y / 0.7**2)
+    qk.reset_launches()
+    out = dec(torch.as_tensor(lc, device=dev), torch.as_tensor(lm, device=dev))
+    torch.cuda.synchronize()
+    if qk.LAUNCHES["vn_block_pass"] < 1:
+        raise AssertionError("the phantom decode launched no block kernel")
+    bits, ok, iters = (o.cpu().numpy() for o in out)
+    for f in range(64):
+        b_ref, it_ref = codec.decode_ref(lc[f], lm[f])
+        if (not np.array_equal(np.asarray(b_ref), bits[f]) or abs(it_ref) != iters[f]
+                or (it_ref > 0) != ok[f]):
+            raise AssertionError(f"phantom toy frame {f} differs from decode_ref")
+    log(f"# phase 12: true-degree-2 phantom graph N={codec.nvar}, {dec.dtype}: 64 frames "
+        f"equal to decode_ref (iters {int(iters.min())}-{int(iters.max())}, ok "
+        f"{float(ok.mean()):.3f}), launches {dict(qk.LAUNCHES)}")
+
+
+def dvbs2(dev, smi, codec, lc, lm):
+    """Phases 13-14: the DVB-S2 standard matrix of lut_ldpc_torch.bench_n64800;
+    returns frame 0's decoded bits and iteration count."""
+    import torch
+
+    from lut_ldpc_torch import bench, bench_n64800 as b64
+    from lut_ldpc_torch.decoder import ArithLUTDecoder, LUTCodec, make_staged_decoder
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    B = b64.BATCH
+    graph = codec.graph
+    lc_d, lm_d = torch.as_tensor(lc, device=dev), torch.as_tensor(lm, device=dev)
+    t0 = time.perf_counter()
+    dec = make_staged_decoder(codec, dev, max_batch=B)
+    if (not isinstance(dec, ArithLUTDecoder) or dec.loop != "qc" or dec.is_prefix
+            or dec.dtype != torch.float32 or [p["td"] for p in dec._ph] != [1]):
+        raise AssertionError(f"expected the full float32 ArithLUTDecoder on the QC loop "
+                             f"with one true-degree-1 phantom, got {type(dec).__name__}")
+    log(f"# phase 13: {type(dec).__name__} ({dec.dtype}, loop {dec.loop}, S={dec.S}) built "
+        f"in {time.perf_counter() - t0:.1f}s")
+    qk.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = dec(lc_d, lm_d)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    by_dtype = {f"{n}/{dt}": c for (n, dt), c in qk.LAUNCHES_BY_DTYPE.items() if c}
+    for name in ("cn_qc_pass", "vn_qc_pass"):
+        if qk.LAUNCHES_BY_DTYPE[name, "float32"] < 1:
+            raise AssertionError(f"DVB-S2 path launched no {name} in float32: {by_dtype}")
+    check_shapes(out, B, codec.nvar)
+    bits, ok, iters = out
+    bnd = bounds(dec, B)
+    log(f"#   launches {by_dtype}; ok {float(ok.float().mean()):.6f}, mean iters "
+        f"{float(iters.float().mean()):.4f}, peak device memory {peak:.2f} GiB; bounds "
+        f"a launch: CN {bnd['cn'][0]:.4f} ms ({bnd['cn'][1]}), VN {bnd['vn'][0]:.4f} ms "
+        f"({bnd['vn'][1]})")
+    n = 256
+    twin = ArithLUTDecoder(codec, dev, spec=dec.spec, kernels=False)
+    t0 = time.perf_counter()
+    same([o[:n] for o in out], twin(lc_d[:n], lm_d[:n]), "DVB-S2 kernel path vs twin path")
+    log(f"#   twin path on the card, first {n} frames: identical bits, ok, iters "
+        f"({time.perf_counter() - t0:.1f}s)")
+    del twin
+    dt_s, out_t = bench.time_decode(dec, lc_d, lm_d, 3)
+    same(out, out_t, "DVB-S2 decode repeated")
+    log(f"#   DVB-S2 N=64800 {B * codec.k / dt_s / 1e6:.3f} Mbit/s ({dt_s * 1e3:.3f} ms per "
+        f"{B} frames) on {smi}")
+
+    # the same matrix unpermuted, every variable's edges in the permuted
+    # graph's order: a degree-1 variable instead of the phantom edge
+    n = 512
+    perm = torch.as_tensor(graph.qc_col_perm, device=dev)
+    t0 = time.perf_counter()
+    codec_g = LUTCodec.design(b64.unpermuted_graph(graph), b64.DESIGN_THR**2,
+                              max_iters=b64.MAX_ITERS, Nq_Cha=16, Nq_Msg=16)
+    dec_g = make_staged_decoder(codec_g, dev, max_batch=n)
+    if (not isinstance(dec_g, ArithLUTDecoder) or dec_g.loop != "std" or dec_g._ph
+            or dec_g.dtype != torch.float32 or 1 not in codec_g.graph.vn_degrees):
+        raise AssertionError("expected the float32 ArithLUTDecoder on the std loop")
+    qk.reset_launches()
+    out_g = dec_g(lc_d[:n][:, perm].contiguous(), lm_d[:n][:, perm].contiguous())
+    torch.cuda.synchronize()
+    if qk.LAUNCHES["cn_std_pass"] < 1 or qk.LAUNCHES["vn_std_pass"] < 1:
+        raise AssertionError("the unpermuted decode launched no std kernel")
+    same((bits[:n][:, perm], ok[:n], iters[:n]), out_g, "DVB-S2 permuted vs unpermuted")
+    log(f"# phase 14: unpermuted matrix on the std kernels ({time.perf_counter() - t0:.1f}s "
+        f"with design and build), {n} frames: launches {dict(qk.LAUNCHES)}; ok and iters "
+        f"equal to the permuted decode, bits equal after un-permuting")
+    return bits[0].cpu().numpy(), int(iters[0])
+
+
+def check_worker_golden(what, golden, frame0, max_iters):
+    import numpy as np
+
+    b_ref, it_ref, secs = golden.get()
+    itr = it_ref if it_ref > 0 else max_iters
+    if not np.array_equal(np.asarray(b_ref), frame0[0]) or itr != frame0[1]:
+        raise AssertionError(f"{what} frame 0 differs from decode_ref")
+    log(f"# phase 15: {what} frame 0: decode_ref agrees (iters {itr}, {secs:.1f}s in a "
+        f"worker process)")
 
 
 def main():
@@ -426,16 +604,31 @@ def main():
     log(f"#   PEG codec designed in {time.perf_counter() - t0:.1f}s (N={codec.nvar}, "
         f"{codec.graph.num_edges} edges, {codec.max_iters} iterations)")
     lc, lm = bench.channel_labels(codec, b64.BATCH, b64.SNR_DB)
+    t0 = time.perf_counter()
+    dvb_codec = b64.build_codec("dvbs2")
+    log(f"#   DVB-S2 codec designed in {time.perf_counter() - t0:.1f}s (N={dvb_codec.nvar}, "
+        f"Z={dvb_codec.graph.qc.Z}, {dvb_codec.graph.num_edges} edges with "
+        f"{len(dvb_codec.graph.phantoms)} phantom, k={dvb_codec.k})")
+    dvb_lc, dvb_lm = bench.channel_labels(dvb_codec, b64.BATCH, b64.SNR_DB)
     results, launches = {}, {}
-    headline(dev, smi, results, launches)
+    head_codec, head_dec, head_lc, head_lm = headline(dev, smi, results, launches)
     torch.cuda.empty_cache()
     # the workers start after the headline's timed phase (they load the
-    # host) and are done before the PEG one; leaving the block terminates
-    # them, also after a failure
-    with multiprocessing.get_context("spawn").Pool(2) as pool:
+    # host); leaving the block terminates them, also after a failure
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
         rank = pool.apply_async(b64.info_bits, ("peg",))
         golden = pool.apply_async(b64.golden_frame, ("peg", lc[0], lm[0]))
-        peg(dev, smi, codec, lc, lm, golden, rank, results, launches)
+        golden_dvb = pool.apply_async(b64.golden_frame, ("dvbs2", dvb_lc[0], dvb_lm[0]))
+        peg_frame0 = peg(dev, smi, codec, lc, lm, rank, results, launches)
+        torch.cuda.empty_cache()
+        block_kernels(dev, head_codec, codec, results)
+        block_loop(dev, smi, head_codec, head_dec, head_lc, head_lm, launches)
+        del head_dec, head_lc, head_lm
+        phantom_toy(dev)
+        torch.cuda.empty_cache()
+        dvb_frame0 = dvbs2(dev, smi, dvb_codec, dvb_lc, dvb_lm)
+        check_worker_golden("PEG", golden, peg_frame0, codec.max_iters)
+        check_worker_golden("DVB-S2", golden_dvb, dvb_frame0, codec.max_iters)
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],

@@ -1,13 +1,22 @@
 """N=64800 irregular decode throughput of the port on one CUDA device.
 
-Counterpart of examples/bench_n64800.py for the two constructions of the
-rate-1/2 dv{2,3,9,17}/dc{8,9} ensemble that the port decodes:
+Counterpart of examples/bench_n64800.py.  Two constructions of the rate-1/2
+dv{2,3,9,17}/dc{8,9} ensemble:
 
 - ``--code peg``: the unstructured PEG code
   (codes/rate0.50_dv02-17_dc08-09_lut_q4_N64800.alist): the std-layout
   kernels, the permutation a row gather;
 - ``--code qc``: the girth-8 irregular quasi-cyclic code
-  (codes/rate0.50_dv02-17_dc08-09_N64800_qc.qc.json): the QC kernels.
+  (codes/rate0.50_dv02-17_dc08-09_N64800_qc.qc.json): the QC kernels;
+
+and the ETSI DVB-S2 rate-1/2 standard matrix
+(codes/rate0.50_irreg_dvbs2_N64800.alist):
+
+- ``--code dvbs2``: permuted to its Z=360 quasi-cyclic form with one phantom
+  completion edge (core/dvbs2.py): the QC kernels, with the phantom rows
+  repaired around them;
+- ``--code dvbs2-gather``: the same matrix as the alist has it (a degree-1
+  variable, no phantom): the std-layout kernels and row gathers.
 
 A 4-bit min-LUT codec designed at sigma = --thr with --iters iterations,
 --batch frames of the all-zero codeword at Eb/N0 = --snr dB, noise from
@@ -15,11 +24,11 @@ A 4-bit min-LUT codec designed at sigma = --thr with --iters iterations,
 decoded information throughput, Mbit/s, timed with
 ``torch.cuda.synchronize()`` around --reps calls after 2 warm-up calls.
 
-    python -m lut_ldpc_torch.bench_n64800 [--code peg|qc] [--batch 4096]
-        [--snr 1.6] [--reps 3] [--thr 0.90] [--iters 50] [--device cuda]
+    python -m lut_ldpc_torch.bench_n64800 [--code peg|qc|dvbs2|dvbs2-gather]
+        [--batch 4096] [--snr 1.6] [--reps 3] [--thr 0.90] [--iters 50]
+        [--device cuda]
 
 Prints one JSON line with the metric ``n64800_<code>_decode_info_throughput``.
-``--code dvbs2`` and ``dvbs2-gather`` are not ported (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEG_ALIST = os.path.join(REPO, "codes", "rate0.50_dv02-17_dc08-09_lut_q4_N64800.alist")
 QC_JSON = os.path.join(REPO, "codes", "rate0.50_dv02-17_dc08-09_N64800_qc.qc.json")
+DVBS2_ALIST = os.path.join(REPO, "codes", "rate0.50_irreg_dvbs2_N64800.alist")
 BATCH = 4096  # make_staged_decoder's default max_batch
 SNR_DB = 1.6
 DESIGN_THR = 0.90
@@ -51,12 +61,38 @@ def build_graph(code: str):
         return TannerGraph.from_alist(PEG_ALIST)
     if code == "qc":
         return qc.qc_expand(qc.load_qc(QC_JSON))
-    if code in ("dvbs2", "dvbs2-gather"):
-        raise NotImplementedError(
-            f"--code {code}: the DVB-S2 matrix needs phantom-completed graphs "
-            "(ROADMAP A6) and the alist factorization core/dvbs2.py, neither "
-            "of which is ported")
+    if code == "dvbs2":
+        from .core.dvbs2 import load_periodic_alist
+
+        return load_periodic_alist(DVBS2_ALIST)[0]
+    if code == "dvbs2-gather":
+        return TannerGraph.from_alist(DVBS2_ALIST)
     raise ValueError(f"unknown code {code!r}")
+
+
+def unpermuted_graph(graph):
+    """The TRUE matrix of a ``load_periodic_alist`` graph back in the alist's
+    own numbering, each variable's edges in the order the permuted graph
+    holds them and the phantom edges left out.  A VN tree's output depends
+    on the order of its inputs, so only this realization of the unpermuted
+    matrix decodes frame for frame like the permuted one (labels carried
+    through ``graph.qc_col_perm``); ``TannerGraph.from_alist`` keeps the
+    file's order and agrees with it statistically."""
+    import numpy as np
+
+    from .core.tanner import TannerGraph
+
+    starts = np.concatenate([[0], np.cumsum(graph.dv_vec)])
+    chk_of_edge = np.empty(graph.num_edges, np.int64)
+    for d in graph.cn_degrees:
+        chk_of_edge[graph.cn_edge_idx[int(d)]] = graph.cn_node_idx[int(d)][:, None]
+    phantom = {p["edge"] for p in graph.phantoms}
+    inv_row = np.argsort(graph.qc_row_perm)
+    cols = []
+    for v in graph.qc_col_perm:
+        edges = [e for e in range(starts[v], starts[v + 1]) if e not in phantom]
+        cols.append(inv_row[chk_of_edge[edges]])
+    return TannerGraph.from_cols(cols, graph.nvar, graph.nchk)
 
 
 def build_codec(code: str, thr: float = DESIGN_THR, iters: int = MAX_ITERS):

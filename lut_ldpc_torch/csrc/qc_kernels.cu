@@ -1,6 +1,6 @@
 // CN and VN passes of the value-domain LUT decode for Hopper (sm_90a).
 //
-// Four kernels, two per graph family, sharing their arithmetic:
+// Six kernels sharing their arithmetic, two per graph family:
 //   cn_qc_kernel / vn_qc_kernel   replace lut_ldpc_tpu/decoder/qc_kernels.py
 //     ::cn_qc_pass (Pallas body _cn_qc_kernel) and ::vn_qc_pass
 //     (_vn_qc_kernel) for quasi-cyclic graphs: a circulant shift is a
@@ -10,7 +10,15 @@
 //     each degree class is a run of contiguous slot planes, the permutation
 //     between the VN- and CN-grouped orders is a row gather outside the
 //     kernel, and padding rows of a class are skipped (never read into the
-//     syndrome or unanimity flags, never written).
+//     syndrome or unanimity flags, never written);
+//   cn_block_kernel / vn_block_kernel replace
+//     lut_ldpc_tpu/decoder/pallas_kernels.py::cn_pass (_cn_kernel) and
+//     ::vn_pass (_vn_kernel): one degree block, (d, n_pad, B) slot planes,
+//     the VN tree evaluated in full for every leave-one-out output through
+//     the caller's index table (no shared sweeps), every op a plain select
+//     chain with a tie at a zero sum.  Bound: bytes, as the others; the full
+//     evaluation costs d times the tree per node, which a block of low
+//     degree hides behind its loads and a block of high degree does not.
 // What the Pallas kernels compute (_vn_class_compute, the two-min CN) is
 // kept; the TPU schedule (halo planes, 8-row realign, per-class tile
 // lengths, double-buffered window DMAs, SMEM step tables) is not.  Messages
@@ -154,25 +162,17 @@ __device__ __forceinline__ void stage_params(float* sprm,
   __syncthreads();
 }
 
-// One op: the sum of its operands left to right, then the select chain
+// The emission of op o for the operand sum s: the select chain
 // out = lev[0]; out = lev[t+1] where x >= thr[t] (flag 4: the thresholds
 // ascend, so the chain's result is found by bisection); sym ops (flag 1)
 // chain on |s| and restore the sign; tie ops (flag 2) emit tie_lo/tie_hi at
-// s == 0 by the sign of the last operand.  val(x) gives the value in
-// operand slot x.
-template <typename Val>
-__device__ __forceinline__ float eval_op(const VnTree& t, int o,
-                                         const Val& val) {
+// s == 0 by the sign of `last`, the value of the op's last operand.
+__device__ __forceinline__ float emit_op(const VnTree& t, int o, float s,
+                                         float last) {
   const int* oi = t.op_info + (t.op0 + o) * kOpCols;
-  const int os = oi[0], oc = oi[1], nthr = oi[2], fl = oi[3];
+  const int nthr = oi[2], fl = oi[3];
   const float* thr = t.sprm + oi[4];
   const float* lev = thr + nthr;
-  float last = val(t.opnds[os]);
-  float s = last;
-  for (int q = 1; q < oc; ++q) {
-    last = val(t.opnds[os + q]);
-    s = s + last;
-  }
   const float x = (fl & 1) ? fabsf(s) : s;
   float out;
   if (fl & 4) {
@@ -192,6 +192,22 @@ __device__ __forceinline__ float eval_op(const VnTree& t, int o,
   if (fl & 1) out = (s < 0.f) ? -out : out;
   if ((fl & 2) && s == 0.f) out = (last < 0.f) ? lev[nthr + 1] : lev[nthr + 2];
   return out;
+}
+
+// One op: the sum of its operands left to right, then its emission.
+// val(x) gives the value in operand slot x.
+template <typename Val>
+__device__ __forceinline__ float eval_op(const VnTree& t, int o,
+                                         const Val& val) {
+  const int* oi = t.op_info + (t.op0 + o) * kOpCols;
+  const int os = oi[0], oc = oi[1];
+  float last = val(t.opnds[os]);
+  float s = last;
+  for (int q = 1; q < oc; ++q) {
+    last = val(t.opnds[os + q]);
+    s = s + last;
+  }
+  return emit_op(t, o, s, last);
 }
 
 // VN update of one variable for one frame: for each output edge i, the
@@ -359,7 +375,111 @@ vn_std_kernel(const T* __restrict__ m_in, const T* __restrict__ cha,
   if (!agree) unan[b] = 0;
 }
 
+// ---------------------------------------------------------------------------
+// one degree block, (d, n_pad, B) slot planes: one thread per (node row, frame)
+// ---------------------------------------------------------------------------
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(kThreads)
+cn_block_kernel(const T* __restrict__ m_in, T* __restrict__ m_out,
+                uint8_t* __restrict__ synd, int d, int n_pad, int n_real,
+                int B, int nbx) {
+  const int g = blockIdx.x / nbx;
+  const int b = (blockIdx.x - g * nbx) * kThreads + threadIdx.x;
+  if (b >= B || g >= n_real) return;  // padding row
+  const StdRows rows{0, n_pad, g};
+  if (cn_update<T, MAXD>(m_in, m_out, d, rows, rows, B, b)) synd[b] = 0;
+}
+
+// Every leave-one-out output i evaluates the whole tree: message leaf x
+// takes message loo[i * d + x], the channel is leaf d - 1; with use_tot
+// the sum of op 0 is (m_0 + ... + m_{d-1}) - m_i.
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(kThreads)
+vn_block_kernel(const T* __restrict__ m_in, const T* __restrict__ cha,
+                T* __restrict__ m_out, uint8_t* __restrict__ bits,
+                uint8_t* __restrict__ unan, const int* __restrict__ op_info,
+                const int* __restrict__ opnds, const int* __restrict__ loo,
+                const float* __restrict__ prm, int it, int prm_row, int d,
+                int nops, int use_tot, int n_pad, int n_real, int B, int nbx) {
+  extern __shared__ float sprm[];
+  stage_params(sprm, prm, it, prm_row);
+
+  const int g = blockIdx.x / nbx;
+  const int b = (blockIdx.x - g * nbx) * kThreads + threadIdx.x;
+  if (b >= B || g >= n_real) return;  // padding row
+  const StdRows rows{0, n_pad, g};
+  float msg[MAXD];
+#pragma unroll
+  for (int k = 0; k < MAXD; ++k) {
+    if (k < d)
+      msg[k] = static_cast<float>(m_in[static_cast<size_t>(rows(k)) * B + b]);
+  }
+  const size_t nrow = static_cast<size_t>(g) * B + b;
+  const float ch = static_cast<float>(cha[nrow]);
+  float tot = 0.f;
+  if (use_tot) {
+    tot = msg[0];
+    for (int k = 1; k < d; ++k) tot = tot + msg[k];
+  }
+  const VnTree tree{d, 0, nops, op_info, opnds, sprm};
+  float cur[kMaxOps];
+  bool neg0 = false, agree = true;
+  for (int i = 0; i < d; ++i) {
+    const int* li = loo + i * d;
+    const auto val = [&](int x) {
+      return x < d - 1 ? msg[li[x]] : (x == d - 1 ? ch : cur[x - d]);
+    };
+    for (int o = 0; o < nops; ++o) {
+      if (o == 0 && use_tot) {
+        const int* oi = op_info;  // op 0: operand start, operand count
+        cur[0] = emit_op(tree, 0, tot - msg[i], val(opnds[oi[0] + oi[1] - 1]));
+      } else {
+        cur[o] = eval_op(tree, o, val);
+      }
+    }
+    const float o_i = nops ? cur[nops - 1] : ch;
+    m_out[static_cast<size_t>(rows(i)) * B + b] = to_store<T>(o_i);
+    const bool ni = o_i < 0.f;
+    if (i == 0)
+      neg0 = ni;
+    else
+      agree = agree && (ni == neg0);
+  }
+  bits[nrow] = neg0 ? 1 : 0;
+  if (!agree) unan[b] = 0;
+}
+
 inline int blocks_x(int B) { return (B + kThreads - 1) / kThreads; }
+
+template <typename T, int MAXD>
+int launch_cn_block(const void* m_in, void* m_out, void* synd, int d,
+                    int n_pad, int n_real, int B, void* stream) {
+  const int nbx = blocks_x(B);
+  cn_block_kernel<T, MAXD><<<static_cast<unsigned>(n_pad) * nbx, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(m_in), static_cast<T*>(m_out),
+      static_cast<uint8_t*>(synd), d, n_pad, n_real, B, nbx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int MAXD>
+int launch_vn_block(const void* m_in, const void* cha, void* m_out, void* bits,
+                    void* unan, const void* op_info, const void* opnds,
+                    const void* loo, const void* prm, int it, int prm_row,
+                    int d, int nops, int use_tot, int n_pad, int n_real, int B,
+                    void* stream) {
+  const int nbx = blocks_x(B);
+  const size_t smem = static_cast<size_t>(prm_row) * sizeof(float);
+  vn_block_kernel<T, MAXD><<<static_cast<unsigned>(n_pad) * nbx, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(m_in), static_cast<const T*>(cha),
+      static_cast<T*>(m_out), static_cast<uint8_t*>(bits),
+      static_cast<uint8_t*>(unan), static_cast<const int*>(op_info),
+      static_cast<const int*>(opnds), static_cast<const int*>(loo),
+      static_cast<const float*>(prm), it, prm_row, d, nops, use_tot, n_pad,
+      n_real, B, nbx);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, int MAXD>
 int launch_cn(const void* m_vn, void* m_cn, void* synd, const void* src,
@@ -485,6 +605,27 @@ int lut_vn_std_pass(int is_f32, const void* m_in, const void* cha, void* m_out,
   return LUT_DISPATCH(launch_vn_std, m_in, cha, m_out, bits, unan, cls, ncls,
                       cls_op0, cls_nops, op_info, opnds, prm, it, prm_row,
                       nodes, B, stream);
+}
+
+// One degree block: m (d, n_pad, B) slot planes, rows >= n_real are padding.
+int lut_cn_block_pass(int is_f32, const void* m_in, void* m_out, void* synd,
+                      int maxd, int n_pad, int n_real, int B, void* stream) {
+  if (maxd > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return LUT_DISPATCH(launch_cn_block, m_in, m_out, synd, maxd, n_pad, n_real,
+                      B, stream);
+}
+
+int lut_vn_block_pass(int is_f32, const void* m_in, const void* cha,
+                      void* m_out, void* bits, void* unan, const void* op_info,
+                      const void* opnds, const void* loo, const void* prm,
+                      int it, int prm_row, int maxd, int nops, int use_tot,
+                      int n_pad, int n_real, int B, void* stream) {
+  if (maxd > 32 || nops > kMaxOps ||
+      static_cast<size_t>(prm_row) * sizeof(float) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return LUT_DISPATCH(launch_vn_block, m_in, cha, m_out, bits, unan, op_info,
+                      opnds, loo, prm, it, prm_row, maxd, nops, use_tot, n_pad,
+                      n_real, B, stream);
 }
 
 }  // extern "C"

@@ -3,8 +3,8 @@ from .arith_decoder import ArithLUTDecoder
 from .codec import LUTCodec, codec_from_arrays
 from .fast_decoder import FastLUTDecoder, make_decoder
 from .hybrid import HybridLUTDecoder, MixedArithDecoder
-from .lut_decoder import cn_minsum
-from .staged import ChunkedDecoder, make_staged_decoder
+from .lut_decoder import LUTDecoder, cn_minsum
+from .staged import ChunkedDecoder, StagedLUTDecoder, make_staged_decoder
 
 __all__ = [
     "ArithBuildError",
@@ -13,7 +13,9 @@ __all__ = [
     "FastLUTDecoder",
     "HybridLUTDecoder",
     "LUTCodec",
+    "LUTDecoder",
     "MixedArithDecoder",
+    "StagedLUTDecoder",
     "build_arith_prefix_spec",
     "build_arith_spec",
     "cn_minsum",

@@ -1,18 +1,28 @@
 """Value-domain LUT decoder (the kernel path).
 
 Port of lut_ldpc_tpu/decoder/arith_decoder.py ``ArithLUTDecoder`` with its
-``_build_qc_pallas`` loop (:1093-1457, graphs with a quasi-cyclic plan) and
-its ``_build_std_kernels`` loop (:863-1090, every other graph: PEG codes,
-the unpermuted DVB-S2 matrix), as one eager loop over iterations:
+three loops as one eager loop over iterations whose CN and VN passes come
+from one of three places:
+
+- ``qc``, the ``_build_qc_pallas`` loop (:1093-1457, graphs with a
+  quasi-cyclic plan): ``cn_qc_pass`` / ``vn_qc_pass`` roll circulants inside
+  the kernel;
+- ``std``, the ``_build_std_kernels`` loop (:863-1090, every other graph:
+  PEG codes, the unpermuted DVB-S2 matrix): ``cn_std_pass`` /
+  ``vn_std_pass`` work on contiguous slot planes and the permutation is a
+  row gather here, before each pass;
+- ``blocks``, the plain ``_build`` loop (:621-823): the same row gathers,
+  then one ``cn_block_pass`` per check degree block and one
+  ``vn_block_pass`` per variable degree block (``block_kernels``).  It is
+  taken where neither kernel loop applies (a phantom node whose true degree
+  is not 1) or when the constructor is given ``loop="blocks"``.
+
+Around the passes, shared by the three:
 
 - labels -> int16/float32 values through the spec's leaf tables;
-- per iteration one CN pass (which also yields the syndrome of the input
-  signs) and one VN pass (which also yields hard bits and sign
-  unanimity), both from ``qc_kernels``: the ``*_qc_pass`` pair rolls
-  circulants inside the kernel, the ``*_std_pass`` pair works on contiguous
-  slot planes and the permutation is a row gather here, before each pass;
 - the early-exit latch ``conv = unan_p & synd & (it >= 1) & ~done`` with
-  bits_p / unan_p from the previous VN pass (:1285);
+  bits_p / unan_p from the previous VN pass (:1285) and synd from the CN
+  pass's input signs;
 - the survivor funnel (:1318-1389): when the live count falls to the next
   width, the undecided frames (padded with finished ones) are gathered
   into a narrower batch by a stable sort of ``done``; the JAX loop's stop
@@ -23,11 +33,20 @@ the unpermuted DVB-S2 matrix), as one eager loop over iterations:
   the loop starts at iteration k from per-edge values and a given early-exit
   state, for the mixed-precision decoders' float32 segment.
 
-Messages stay in the standard slot-major grouped layout
-(``GroupedLayout(slot_major=True, align=16)``), shape (rows, B).
+Phantom completion edges (core/qc.py; the permuted DVB-S2 matrix has one)
+keep the pinned-edge semantics of ``decode_ref`` (:122-226): a phantom v2c
+row holds the strongest positive value at every CN pass, which min-sum
+ignores; the phantom node updates with the trees of its TRUE degree over its
+real sockets; the output syndrome skips phantom pairs.  The kernel loops
+cover true degree 1: before the VN pass the node's phantom input rows take
+its one real c2v input, so its unanimity lane is trivially true, and after
+the pass its real row takes the channel-only tree's output (plain torch on
+one (B,) row).  The block loop covers any true degree and recomputes bits
+and unanimity from the repaired rows.
 
-Not ported here: phantom-completed graphs (ROADMAP A6) and the plain
-value-domain path ``_build`` without kernels (A8).
+Messages stay in the standard slot-major grouped layout
+(``GroupedLayout(slot_major=True, align=16)``), shape (rows, B), in all
+three loops, so the phantom rows index the arrays directly.
 """
 
 from __future__ import annotations
@@ -38,21 +57,29 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import block_kernels as bk
 from . import fast_layout
 from . import qc_kernels as qk
-from .arith import build_arith_spec
+from .arith import ArithBuildError, build_arith_spec
+from .layout import leave_one_out_idx
 from .params import (arith_tensors, qc_tables, std_tables, torch_dtype,
                      vn_params)
 
-__all__ = ["ArithLUTDecoder", "funnel_widths", "as_labels"]
+__all__ = ["ArithLUTDecoder", "funnel_widths", "as_labels", "seam_bits_unan"]
 
 
 def funnel_widths(B: int) -> list:
     """Stage widths for survivor compaction: [B, B/4, B/16], floored at
-    512 frames (LUT_FUNNEL_MIN sets the floor, as in the JAX decoder)."""
+    512 frames.  As in the JAX decoder, LUT_FUNNEL_MIN sets the floor and
+    LUT_FUNNEL the divisors ("0", "off" or "none": no funnel; else a
+    comma-separated list such as "4,16")."""
+    env = os.environ.get("LUT_FUNNEL", "")
+    if env.lower() in ("0", "off", "none"):
+        return [B]
+    divs = [int(x) for x in env.split(",") if x.strip()] if env else [4, 16]
     floor = int(os.environ.get("LUT_FUNNEL_MIN", "512"))
     widths = [B]
-    for d in (4, 16):
+    for d in divs:
         w = B // d
         if w >= floor and w < widths[-1]:
             widths.append(w)
@@ -74,6 +101,24 @@ def as_labels(x, device: torch.device, nvar: int) -> torch.Tensor:
     return x.long()
 
 
+def seam_bits_unan(layout, m_edges: torch.Tensor):
+    """Hard decisions (nvar_pad, B) int8 and per-frame sign unanimity from
+    std-grouped per-edge VN-output values: the data the VN pass emits,
+    recomputed from the array (at a precision seam, where re-embedding
+    preserves signs, hybrid.py:69; after phantom rows were repaired in the
+    block loop, arith_decoder.py:626-636).  Padding rows take no part in the
+    unanimity."""
+    B = m_edges.shape[1]
+    bits = []
+    unan = torch.ones(B, dtype=torch.bool, device=m_edges.device)
+    for blk in layout.vn_blocks:
+        d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
+        neg = m_edges[e0 : e0 + n * d].reshape(d, n, B) < 0
+        unan &= (neg == neg[:1])[:, : blk.num_nodes].all(dim=0).all(dim=0)
+        bits.append(neg[0].to(torch.int8))
+    return torch.cat(bits, dim=0), unan
+
+
 def _tree_params(spec_tree):
     """Decision-tree ops as (operands, thr, levels, tie_lo, tie_hi) float32
     numpy parameters (select-chain emission; exact for integer specs since
@@ -93,10 +138,17 @@ class ArithLUTDecoder:
     device: where the decoder's tensors live and its inputs must be.
     kernels: False routes CUDA tensors through the plain twins instead of
     the CUDA kernels (the comparison path); CPU tensors always take the
-    twins."""
+    twins.
+    loop: "auto" takes the QC kernels on a graph with a quasi-cyclic plan,
+    the std kernels on any other, and the per-degree-block loop where a
+    phantom node's true degree is not 1; "blocks" takes the block loop on
+    any graph (what LUT_LDPC_NO_STD_KERNELS and a non-TPU platform do to
+    the JAX decoder)."""
 
     def __init__(self, codec, device, early_exit: bool = True, spec=None,
-                 kernels: bool = True):
+                 kernels: bool = True, loop: str = "auto"):
+        if loop not in ("auto", "blocks"):
+            raise ValueError(f"loop {loop!r}: expected 'auto' or 'blocks'")
         self.codec = codec
         self.device = resolve_device(device)
         self.early_exit = early_exit
@@ -104,9 +156,6 @@ class ArithLUTDecoder:
         self.is_prefix = self.spec.dec_trees is None
         if self.is_prefix and not early_exit:
             raise ValueError("a prefix decoder requires early_exit")
-        if codec.graph.phantoms:
-            raise NotImplementedError(
-                "phantom-completed graphs (ROADMAP A6)")
         self.T = codec.max_iters
         self.S = self.spec.num_iters
         self.nvar = codec.graph.nvar
@@ -114,38 +163,171 @@ class ArithLUTDecoder:
         self.kernels = kernels
         self.layout = fast_layout.GroupedLayout(codec.graph, slot_major=True,
                                                 align=16)
+        self._build_phantoms()
         qc = getattr(codec.graph, "qc", None)
-        self.plan = self.layout.qc_plan(qc) if qc is not None else None
-        try:
-            spec_di = [self.spec.degrees.index(blk.degree)
-                       for blk in self.layout.vn_blocks]
-        except ValueError:
-            raise ValueError("arith spec degrees do not match graph blocks")
+        plan = self.layout.qc_plan(qc) if qc is not None else None
+        # the kernel loops' equal-inputs trick covers true degree 1 only
+        if loop == "blocks" or any(p["td"] != 1 for p in self._ph):
+            self.loop = "blocks"
+        else:
+            self.loop = "qc" if plan is not None else "std"
+        self.plan = plan if self.loop == "qc" else None
         self.tables = (qc_tables(self.plan, self.layout, self.device)
                        if self.plan is not None
                        else std_tables(self.layout, self.device))
-        self.params = vn_params(self.spec, self.layout, self.device)
+        # classes of the layout blocks, then of the phantoms' true degrees
+        blocks = self.layout.vn_blocks
+        true_degs = sorted({p["td"] for p in self._ph})
+        for p in self._ph:
+            p["cls"] = len(blocks) + true_degs.index(p["td"])
+        self.params = vn_params(self.spec, self.layout, self.device,
+                                extra_degrees=true_degs)
         self.ten = arith_tensors(self.spec, self.layout, self.device)
+        spec_di = [self.spec.degrees.index(d)
+                   for d in [blk.degree for blk in blocks] + true_degs]
         self._dec = (None if self.is_prefix else
                      [_tree_params(self.spec.dec_trees[di]) for di in spec_di])
+        self._progs = None
+        if self.loop == "blocks":
+            self._progs = [self._block_program(bi, spec_di[bi])
+                           for bi in range(len(blocks))]
+
+    # ------------------------------------------------------------------
+    def _build_phantoms(self):
+        """Static bookkeeping for phantom completion edges
+        (arith_decoder.py:122-180): per phantom-completed variable its
+        grouped node row, true degree, and the rows of its phantom and real
+        sockets in the VN-grouped (rows_*) and CN-grouped (cn_rows_*) edge
+        arrays, as index tensors (`real`: the real rows as a list)."""
+        lay = self.layout
+        self._ph = []
+        by_var: dict = {}
+        for p in self.codec.graph.phantoms:
+            by_var.setdefault(p["var"], []).append(p)
+        perm_c2v = np.asarray(lay.perm_c2v)
+        idx = lambda rows: torch.as_tensor(np.asarray(rows, np.int64),
+                                           device=self.device)
+        for v, plist in sorted(by_var.items()):
+            node_row = int(lay.vn_node_pos[v])
+            blk = next(b for b in lay.vn_blocks
+                       if b.node_start <= node_row < b.node_start + b.n_pad)
+            rows = [blk.edge_start + k * blk.n_pad + node_row - blk.node_start
+                    for k in range(blk.degree)]
+            ph_slots = sorted(p["var_slot"] for p in plist)
+            real = [rows[k] for k in range(blk.degree) if k not in ph_slots]
+            if not real:
+                raise ArithBuildError("phantom node with no real socket")
+            if len(real) not in self.spec.degrees:
+                raise ArithBuildError(
+                    f"spec lacks the true degree-{len(real)} trees of a phantom "
+                    "node (design the codec on the phantom graph)")
+            ph = [rows[k] for k in ph_slots]
+            self._ph.append(dict(
+                node_row=node_row, td=len(real), real=real, rows_ph=idx(ph),
+                rows_real=idx(real), cn_rows_ph=idx(perm_c2v[ph]),
+                cn_rows_real=idx(perm_c2v[real])))
+        if self._ph:
+            # the strongest positive value: min-sum is neutral to it
+            self._pin = (32767 if self.dtype == torch.int16
+                         else float(np.finfo(np.float32).max))
+            self._rows_ph = torch.cat([p["rows_ph"] for p in self._ph])
+            self._cn_rows_ph = torch.cat([p["cn_rows_ph"] for p in self._ph])
+
+    def _block_program(self, bi, di):
+        """The block loop's packed VN tree of layout block bi (spec row di):
+        plain thresholds and levels of every iteration, the way
+        examples/profile_pallas.py hands them to the TPU kernel."""
+        trees = [self.spec.var_trees[it][di] for it in range(self.S)]
+        prm = [[dict(thr=op.thresholds, levels=op.levels, tie_lo=op.tie_lo,
+                     tie_hi=op.tie_hi) for op in tree.ops] for tree in trees]
+        d = self.layout.vn_blocks[bi].degree
+        return bk.vn_block_program(trees[0], prm, leave_one_out_idx(d + 1, d),
+                                   self.params.classes[bi].use_tot, self.device)
 
     # ------------------------------------------------------------------
     def _cn(self, m_vn):
-        """VN-grouped v2c values -> (CN-grouped c2v values, syndrome)."""
-        if self.plan is not None:
+        """VN-grouped v2c values -> (CN-grouped c2v values, syndrome).
+        Phantom rows of m_vn are pinned by ``_init`` and ``_vn``."""
+        if self.loop == "qc":
             fn = qk.cn_qc_pass if self.kernels else qk.cn_qc_pass_ref
             return fn(m_vn, self.tables)
-        fn = qk.cn_std_pass if self.kernels else qk.cn_std_pass_ref
-        return fn(m_vn.index_select(0, self.tables.perm_v2c), self.tables)
+        m_cn = m_vn.index_select(0, self.tables.perm_v2c)
+        if self.loop == "std":
+            fn = qk.cn_std_pass if self.kernels else qk.cn_std_pass_ref
+            return fn(m_cn, self.tables)
+        fn = bk.cn_block_pass if self.kernels else bk.cn_block_pass_ref
+        B = m_cn.shape[1]
+        outs, synd = [], None
+        for blk in self.layout.cn_blocks:
+            d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
+            out, ok = fn(m_cn[e0 : e0 + n * d].view(d, n, B), blk.num_nodes)
+            outs.append(out.view(-1, B))
+            synd = ok if synd is None else synd & ok
+        return torch.cat(outs, dim=0), synd
 
     def _vn(self, m_cn, vcha, it):
-        """CN-grouped c2v values -> (VN-grouped v2c values, bits, unan)."""
-        if self.plan is not None:
+        """CN-grouped c2v values -> (VN-grouped v2c values, bits, unan),
+        phantom nodes repaired and their phantom rows pinned."""
+        if self.loop == "qc":
+            for p in self._ph:  # m_cn is this step's own array
+                m_cn[p["cn_rows_ph"]] = m_cn[p["cn_rows_real"][0]].clone()
             fn = qk.vn_qc_pass if self.kernels else qk.vn_qc_pass_ref
-            return fn(m_cn, vcha, it, self.params, self.tables)
-        fn = qk.vn_std_pass if self.kernels else qk.vn_std_pass_ref
-        return fn(m_cn.index_select(0, self.tables.perm_c2v), vcha, it,
-                  self.params, self.tables)
+            m_new = None
+            m_vn, bits, unan = fn(m_cn, vcha, it, self.params, self.tables)
+        else:
+            m_new = m_cn.index_select(0, self.tables.perm_c2v)
+            if self.loop == "std":
+                for p in self._ph:
+                    m_new[p["rows_ph"]] = m_new[p["rows_real"][0]].clone()
+                fn = qk.vn_std_pass if self.kernels else qk.vn_std_pass_ref
+                m_vn, bits, unan = fn(m_new, vcha, it, self.params, self.tables)
+            else:
+                m_vn, bits, unan = self._vn_blocks(m_new, vcha, it)
+        if not self._ph:
+            return m_vn, bits, unan
+        with torch.profiler.record_function("lut::phantom_rows"):
+            for p in self._ph:
+                # true-degree outputs over the real sockets (for true degree
+                # 1 the tree reads the channel alone)
+                msgs = [] if p["td"] == 1 else [m_new[r] for r in p["real"]]
+                outs = self._ph_node_outputs(p, msgs, vcha[p["node_row"]], it)
+                m_vn[p["rows_real"]] = torch.stack(outs)
+                if self.loop == "blocks":  # phantom sockets mirror output 0
+                    m_vn[p["rows_ph"]] = outs[0]
+                else:
+                    bits[p["node_row"]] = (outs[0] < 0).to(bits.dtype)
+            if self.loop == "blocks":
+                bits, unan = seam_bits_unan(self.layout, m_vn)
+            m_vn[self._rows_ph] = self._pin
+        return m_vn, bits, unan
+
+    def _vn_blocks(self, m_new, vcha, it):
+        """One ``vn_block_pass`` per degree block on the VN-grouped c2v
+        values (arith_decoder.py:690-697)."""
+        fn = bk.run_vn_block if self.kernels else bk.run_vn_block_ref
+        B = m_new.shape[1]
+        outs, bits, unan = [], [], None
+        for blk, prog in zip(self.layout.vn_blocks, self._progs):
+            d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
+            out, b, u = fn(m_new[e0 : e0 + n * d].view(d, n, B),
+                           vcha[blk.node_start : blk.node_start + n], prog, it,
+                           blk.num_nodes)
+            outs.append(out.view(-1, B))
+            bits.append(b.view(torch.int8))
+            unan = u if unan is None else unan & u
+        return torch.cat(outs, dim=0), torch.cat(bits, dim=0), unan
+
+    def _ph_node_outputs(self, p, msgs, cha_row, it):
+        """True-degree leave-one-out outputs of one phantom node
+        (arith_decoder.py:190): msgs the td real c2v rows in slot order,
+        cha_row its channel row; td output rows in the message dtype."""
+        cls = self.params.classes[p["cls"]]
+        prm = self.params.prm[it]
+        msgs = [m.to(torch.float32) for m in msgs]
+        cha_row = cha_row.to(torch.float32)
+        return [qk.eval_vn_tree(cls, msgs[:i] + msgs[i + 1 :] + [cha_row],
+                                prm).to(self.dtype)
+                for i in range(p["td"])]
 
     def _channel_values(self, llr_cha):
         """Grouped channel values (nvar_pad, B)."""
@@ -154,11 +336,14 @@ class ArithLUTDecoder:
 
     def _init(self, llr_cha, llr_msg):
         """Grouped channel values, and the loop state at iteration 0: every
-        edge carries its variable's initial message value."""
+        edge carries its variable's initial message value (phantom rows the
+        pin)."""
         vcha = self._channel_values(llr_cha)
         msg = as_labels(llr_msg, self.device, self.nvar)
         v0 = self.ten.leaf_msg0[msg[:, self.ten.vn_nodes].T]
         m_vn = v0[self.ten.edge_node].contiguous()
+        if self._ph:
+            m_vn[self._rows_ph] = self._pin
         B = m_vn.shape[1]
         nvp = self.layout.nvar_pad
         dev = self.device
@@ -169,7 +354,6 @@ class ArithLUTDecoder:
             torch.zeros(B, dtype=torch.bool, device=dev),          # done
             torch.zeros((nvp, B), dtype=torch.int8, device=dev),   # latched
             torch.full((B,), self.T, dtype=torch.int32, device=dev)]
-
     def _loop(self, vcha, state, start: int = 0):
         """Iterations [start, S) with the early-exit latch and the funnel
         on state = [m_vn, bits_p, unan_p, done, latched, iters]; returns
@@ -250,6 +434,8 @@ class ArithLUTDecoder:
         with raw=True what ``raw_carry`` returns."""
         if not self.early_exit:
             raise ValueError("resume requires early_exit")
+        if self._ph:
+            raise ValueError("the continuation is not phantom-aware")
         if not 0 <= k <= self.S:
             raise ValueError(f"resume at iteration {k} outside [0, {self.S}]")
         vcha = self._channel_values(llr_cha)
@@ -282,9 +468,26 @@ class ArithLUTDecoder:
         return bits_grp[node_pos].T.to(torch.uint8), ok, iters
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _eval_dec(ops, vals):
+        """Root output of a decision tree (ops from ``_tree_params``) on the
+        float32 leaf values `vals` (messages, then the channel)."""
+        vals = list(vals)
+        for operands, thr, lev, tlo, thi in ops:
+            s = vals[operands[0]]
+            for sl in operands[1:]:
+                s = s + vals[sl]
+            o = torch.full_like(s, float(lev[0]))
+            for t in range(len(thr)):
+                o = torch.where(s >= float(thr[t]), float(lev[t + 1]), o)
+            tie = torch.where(vals[operands[-1]] < 0, float(tlo), float(thi))
+            vals.append(torch.where(s == 0, tie, o))
+        return vals[-1]
+
     def _decision(self, m_cn, vcha):
         """Decision trees on the final c2v values (arith_decoder.py:1414-1436):
-        (nvar_pad, B) int8 hard bits."""
+        (nvar_pad, B) int8 hard bits; phantom nodes by the tree of their
+        true degree over their real sockets (:207)."""
         B = m_cn.shape[1]
         m_fin = m_cn[self.ten.perm_c2v]
         out = []
@@ -292,23 +495,23 @@ class ArithLUTDecoder:
             d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
             m = m_fin[e0 : e0 + n * d].reshape(d, n, B).to(torch.float32)
             cha = vcha[blk.node_start : blk.node_start + n].to(torch.float32)
-            vals = [m[j] for j in range(d)] + [cha]
-            for operands, thr, lev, tlo, thi in self._dec[bi]:
-                s = vals[operands[0]]
-                for sl in operands[1:]:
-                    s = s + vals[sl]
-                o = torch.full_like(s, float(lev[0]))
-                for t in range(len(thr)):
-                    o = torch.where(s >= float(thr[t]), float(lev[t + 1]), o)
-                tie = torch.where(vals[operands[-1]] < 0, float(tlo), float(thi))
-                vals.append(torch.where(s == 0, tie, o))
-            out.append((vals[-1] < 0).to(torch.int8))
-        return torch.cat(out, dim=0)
+            root = self._eval_dec(self._dec[bi], [m[j] for j in range(d)] + [cha])
+            out.append((root < 0).to(torch.int8))
+        dec_bits = torch.cat(out, dim=0)
+        for p in self._ph:
+            vals = [m_fin[r].to(torch.float32) for r in p["real"]]
+            vals.append(vcha[p["node_row"]].to(torch.float32))
+            root = self._eval_dec(self._dec[p["cls"]], vals)
+            dec_bits[p["node_row"]] = (root < 0).to(torch.int8)
+        return dec_bits
 
     def _syndrome_ok(self, bits_grp):
-        """Per-frame parity of the decided bits over every real check."""
+        """Per-frame parity of the decided bits over every real check of
+        the true matrix (phantom pairs contribute nothing, :220)."""
         B = bits_grp.shape[1]
         edge_bits = bits_grp[self.ten.cn_var_pos].to(torch.int32)
+        if self._ph:
+            edge_bits[self._cn_rows_ph] = 0
         ok = torch.ones(B, dtype=torch.bool, device=bits_grp.device)
         pos = 0
         for bi, blk in enumerate(self.layout.cn_blocks):

@@ -2,21 +2,23 @@
 
 ``FastLUTDecoder`` ports lut_ldpc_tpu/decoder/fast_decoder.py (:109): int8
 labels in (B, E) node-major grouped layout, two permutation gathers per
-iteration, min-sum CN on labels, VN updates through composed leave-one-out
-tables (one gather per node) or per-op tree programs.  The JAX ``lax.scan``
-over iterations is a Python loop here; ``tail(start, ...)`` is the
-continuation from iteration ``start`` that HybridLUTDecoder hands its
-value-domain state to.  This is gathers on labels in plain torch; the JAX
-package has no Pallas kernel for it either.
+iteration, min-sum CN on labels or the codec's CN LUT trees, VN updates
+through composed leave-one-out tables (one gather per node) or per-op tree
+programs.  The JAX ``lax.scan`` over iterations is a Python loop here;
+``tail(start, ...)`` is the continuation from iteration ``start`` that
+HybridLUTDecoder hands its value-domain state to.  This is gathers on labels
+in plain torch; the JAX package has no Pallas kernel for it either.
 
 ``make_decoder`` keeps the JAX ladder (fast_decoder.py:50-106) and picks
 the class the JAX package picks for the same codec where its kernels run
-(on a TPU): this package always has a kernel path.  Where the JAX package
-would fall to its unrolled decoder this one raises NotImplementedError
-naming the ROADMAP item.
+(on a TPU): this package always has a kernel path.  Its last rung is the
+general ``LUTDecoder``, with the JAX package's warning for a large
+phantom-completed codec.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -25,7 +27,7 @@ from ..device import resolve_device
 from . import fast_layout
 from .arith import ArithBuildError, build_arith_spec
 from .arith_decoder import ArithLUTDecoder, as_labels
-from .lut_decoder import cn_minsum
+from .lut_decoder import LUTDecoder, cn_minsum, eval_program
 from .params import fast_tables
 
 __all__ = ["FastLUTDecoder", "make_decoder"]
@@ -35,7 +37,7 @@ def make_decoder(codec, device, early_exit: bool = True):
     """Fastest provably-equivalent decoder for this codec, by the JAX
     package's order: full int16 arithmetic, mixed int16/f32 arithmetic,
     full f32 arithmetic, hybrid prefix + table tail, table decoder,
-    unrolled decoder (ROADMAP A8)."""
+    general table decoder."""
     from .hybrid import HybridLUTDecoder, MixedArithDecoder
 
     try:  # int16 halves traffic when exact over the whole budget
@@ -63,7 +65,15 @@ def make_decoder(codec, device, early_exit: bool = True):
             return FastLUTDecoder(codec, device, early_exit=early_exit)
         except ValueError:
             pass
-    raise NotImplementedError("unrolled LUTDecoder fallback: ROADMAP A8")
+    if (getattr(codec.graph, "qc_phantoms", ()) and codec.max_iters > 20
+            and codec.nvar > 10000):
+        warnings.warn(
+            f"no arithmetic spec validates for this phantom-completed codec; "
+            f"falling back to the general table decoder ({codec.max_iters} "
+            f"iterations at N={codec.nvar} run slowly): consider the "
+            f"unpermuted realization or a design sigma whose f32 spec "
+            f"validates", stacklevel=2)
+    return LUTDecoder(codec, device, early_exit=early_exit)
 
 
 class FastLUTDecoder:
@@ -91,16 +101,6 @@ class FastLUTDecoder:
         return [m[:, b.edge_start : b.edge_start + b.num_nodes * b.degree]
                 .reshape(m.shape[0], b.num_nodes, b.degree) for b in blocks]
 
-    @staticmethod
-    def _run_program(prog, tables, x):
-        vals = [x[..., i].to(torch.int64) for i in range(prog.num_inputs)]
-        for op, table in zip(prog.ops, tables):
-            label = vals[op.operands[0]] * op.bases[0]
-            for b, s in zip(op.bases[1:], op.operands[1:]):
-                label = label + b * vals[s]
-            vals.append(table[label].to(torch.int64))
-        return vals[-1]
-
     def _vn_update_block(self, bi, m, cha, it):
         """m (B, n, d) labels, cha (B, n) channel labels -> (B, n, d)."""
         d = self.layout.vn_blocks[bi].degree
@@ -115,11 +115,22 @@ class FastLUTDecoder:
         inp = torch.cat([m, cha[..., None].to(self.msg_dtype)], dim=-1)
         x = inp[:, :, tab.vn_loo[d]]  # (B, n, d, d)
         tables = [t[it] for t in tab.var_xs[bi]]
-        return self._run_program(tab.var_progs[bi], tables, x).to(self.msg_dtype)
+        return eval_program(tab.var_progs[bi], tables, x).to(self.msg_dtype)
 
-    def _cn_update(self, m_cn):
-        outs = [cn_minsum(m, self.nz).reshape(m.shape[0], -1)
-                for m in self._blocks_of(m_cn, self.layout.cn_blocks)]
+    def _cn_update(self, m_cn, it):
+        """Full CN pass of iteration `it` on the CN-grouped labels: min-sum,
+        or the codec's CN LUT trees (fast_decoder.py:292)."""
+        tab = self.tab
+        outs = []
+        for ci, m in enumerate(self._blocks_of(m_cn, self.layout.cn_blocks)):
+            if self.codec.min_lut:
+                out = cn_minsum(m, self.nz)
+            else:
+                d = self.layout.cn_blocks[ci].degree
+                out = eval_program(tab.chk_progs[ci],
+                                   [t[it] for t in tab.chk_xs[ci]],
+                                   m[:, :, tab.cn_loo[d]]).to(self.msg_dtype)
+            outs.append(out.reshape(m.shape[0], -1))
         return torch.cat(outs, dim=1)
 
     def _convergence(self, m_vn, m_cn):
@@ -175,7 +186,7 @@ class FastLUTDecoder:
                 latched = torch.where(conv[:, None], bits, latched)
                 iters = torch.where(conv, torch.full_like(iters, it), iters)
                 done = done | conv
-            m_new = self._cn_update(m_cn)[:, tab.perm_c2v]
+            m_new = self._cn_update(m_cn, it)[:, tab.perm_c2v]
             outs = []
             for bi, (m, cha) in enumerate(zip(
                     self._blocks_of(m_new, self.layout.vn_blocks), cha_blocks)):
@@ -190,7 +201,7 @@ class FastLUTDecoder:
             latched = torch.where(conv[:, None], bits, latched)
             iters = torch.where(conv, torch.full_like(iters, T - 1), iters)
             done = done | conv
-        m_fin = self._cn_update(m_cn)[:, tab.perm_c2v]
+        m_fin = self._cn_update(m_cn, T - 1)[:, tab.perm_c2v]
 
         dec_bits = []
         for bi, (m, cha) in enumerate(zip(
@@ -202,7 +213,7 @@ class FastLUTDecoder:
                 out = tab.dec_tab[bi][idx]
             else:
                 prog, tabs = tab.dec_progs[bi]
-                out = self._run_program(prog, tabs,
+                out = eval_program(prog, tabs,
                                         torch.cat([m, cha[..., None]], dim=-1))
             dec_bits.append((out < 1).to(torch.uint8))
         bits_grp = torch.where(done[:, None], latched, torch.cat(dec_bits, dim=1))

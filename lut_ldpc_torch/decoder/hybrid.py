@@ -30,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from .arith import ArithBuildError, build_arith_prefix_spec, build_arith_spec
-from .arith_decoder import ArithLUTDecoder, as_labels
+from .arith_decoder import ArithLUTDecoder, as_labels, seam_bits_unan
 from .fast_decoder import FastLUTDecoder
 
 __all__ = ["HybridLUTDecoder", "MixedArithDecoder", "seam_labels",
@@ -50,23 +50,6 @@ def seam_values(m_vals: torch.Tensor, table_from, table_to) -> torch.Tensor:
     monotone map; hybrid.py:234-237)."""
     lab = seam_labels(m_vals, table_from)
     return table_to.index_select(0, lab.reshape(-1)).reshape(lab.shape)
-
-
-def seam_bits_unan(layout, m_edges: torch.Tensor):
-    """Hard decisions (nvar_pad, B) int8 and per-frame sign unanimity from
-    std-grouped per-edge VN-output values: the data the VN pass emits,
-    recomputed at a precision seam (re-embedding preserves signs, so this
-    equals the previous segment's final VN outputs; hybrid.py:69).  Padding
-    rows take no part in the unanimity."""
-    B = m_edges.shape[1]
-    bits = []
-    unan = torch.ones(B, dtype=torch.bool, device=m_edges.device)
-    for blk in layout.vn_blocks:
-        d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
-        neg = m_edges[e0 : e0 + n * d].reshape(d, n, B) < 0
-        unan &= (neg == neg[:1])[:, : blk.num_nodes].all(dim=0).all(dim=0)
-        bits.append(neg[0].to(torch.int8))
-    return torch.cat(bits, dim=0), unan
 
 
 def root_levels(spec, it):

@@ -103,21 +103,24 @@ class VNParams:
     max_ops: int            # most ops in one class tree
 
 
-def vn_params(spec, lay, device) -> VNParams:
+def vn_params(spec, lay, device, extra_degrees=()) -> VNParams:
     """Stacked per-iteration VN parameters of `spec` for the blocks of the
-    slot-major layout `lay`."""
+    slot-major layout `lay`.  `extra_degrees`: spec degrees that no layout
+    block has (the true degrees of phantom-completed nodes,
+    arith_decoder.py:79-87); their classes follow the blocks' classes in
+    `classes`, and no kernel row refers to them."""
     S = spec.num_iters
     if S < 1:
         raise ValueError("spec covers no VN iteration")
     try:
-        spec_di = [spec.degrees.index(blk.degree) for blk in lay.vn_blocks]
+        spec_di = [spec.degrees.index(d) for d in
+                   [blk.degree for blk in lay.vn_blocks] + list(extra_degrees)]
     except ValueError:
         raise ValueError("arith spec degrees do not match graph blocks")
     is_int = np.issubdtype(np.dtype(spec.dtype), np.integer)
     classes, cols = [], []  # cols: per-op (S, width) float32 blocks
     off = 0
-    for bi, blk in enumerate(lay.vn_blocks):
-        di = spec_di[bi]
+    for di in spec_di:
         struct = spec.var_trees[0][di]
         ops = []
         spans = loo_msg_spans(struct)
@@ -138,7 +141,7 @@ def vn_params(spec, lay, device) -> VNParams:
                             span=spans[oi] or (-1, -1)))
             cols.append(np.concatenate([thr, lev, ties], axis=1))
             off += 2 * nthr + 3
-        d = blk.degree
+        d = spec.degrees[di]
         use_tot = (is_int and d >= 3
                    and struct.ops[0].operands == tuple(range(d - 1)))
         classes.append(VNClass(degree=d, num_inputs=struct.num_inputs,
@@ -388,14 +391,17 @@ class FastTables:
     vn_node_pos: torch.Tensor
     cn_var_pos: torch.Tensor
     vn_loo: dict     # degree -> (d, d) leave-one-out index over d+1 inputs
+    # CN LUT trees (codecs that are not min-LUT; else None): per CN block a
+    # TreeProgram and per op its tables stacked over all T iterations
+    chk_progs: list
+    chk_xs: list
+    cn_loo: dict     # degree -> (d, d - 1) leave-one-out index over d inputs
     bases: dict      # degree -> (d,) int32 mixed-radix bases
     out_bits: int
 
 
 def fast_tables(codec, lay, Nq, device) -> FastTables:
-    """fast_decoder.py:135-243 for min-LUT codecs (CN trees: ROADMAP A8)."""
-    if not codec.min_lut:
-        raise NotImplementedError("table decoder with CN LUT trees (ROADMAP A8)")
+    """fast_decoder.py:135-243."""
     T, Nqc = codec.max_iters, codec.Nq_Cha
     t32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
     var_kind, var_progs, var_xs = [], [], []
@@ -427,6 +433,19 @@ def fast_tables(codec, lay, Nq, device) -> FastTables:
             var_xs.append([t32(np.stack([p.ops[oi].table for p in progs]))
                            for oi in range(len(progs[0].ops))])
 
+    chk_progs = chk_xs = None
+    if not codec.min_lut:
+        chk_progs, chk_xs = [], []
+        for blk in lay.cn_blocks:
+            progs = [tree_layout.tree_program(codec.chk_tree(ii, blk.degree))
+                     for ii in range(T)]
+            key0 = progs[0].structure_key()
+            if any(p.structure_key() != key0 for p in progs[1:]):
+                raise ValueError("fast decoder: chk tree structure varies over iterations")
+            chk_progs.append(progs[0])
+            chk_xs.append([t32(np.stack([p.ops[oi].table for p in progs]))
+                           for oi in range(len(progs[0].ops))])
+
     dec_kind, dec_tab, dec_progs = [], [], []
     for blk in lay.vn_blocks:
         d = blk.degree
@@ -449,5 +468,8 @@ def fast_tables(codec, lay, Nq, device) -> FastTables:
         cn_var_pos=_i64(lay.cn_var_pos, device),
         vn_loo={d: _i64(tree_layout.leave_one_out_idx(d + 1, d), device)
                 for d in degs},
+        chk_progs=chk_progs, chk_xs=chk_xs,
+        cn_loo={blk.degree: _i64(tree_layout.leave_one_out_idx(
+            blk.degree, blk.degree), device) for blk in lay.cn_blocks},
         bases={d: t32(Nq ** np.arange(d)) for d in degs},
         out_bits=max(1, int(np.ceil(np.log2(Nq)))))

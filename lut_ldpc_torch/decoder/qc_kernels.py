@@ -5,7 +5,8 @@
 the hand-written Hopper kernels of ``lut_ldpc_torch/csrc/qc_kernels.cu``
 and CPU tensors to their plain-torch twins ``*_ref``, which sit beside them
 and compute the same values.  A CUDA tensor never falls back to a twin:
-the kernel launches or the wrapper raises.
+the kernel launches or the wrapper raises.  The same library holds the
+per-degree-block pair whose wrappers are in ``block_kernels``.
 
 They replace lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass (:549),
 ::vn_qc_pass (:873), ::cn_std_pass (:1206) and ::vn_std_pass (:1353),
@@ -51,7 +52,7 @@ MAX_TREE_OPS = 32  # ops of one VN tree (kMaxOps in the source)
 
 # kernel launches per wrapper, and the same split by message dtype
 LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
-            "vn_std_pass": 0}
+            "vn_std_pass": 0, "cn_block_pass": 0, "vn_block_pass": 0}
 LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
                      for dt in ("int16", "float32")}
 
@@ -110,6 +111,11 @@ def _load():
             lib.lut_vn_std_pass.argtypes = ([i] + [p] * 6 + [i] + [p] * 5
                                             + [i] * 5 + [p])
             lib.lut_vn_std_pass.restype = i
+            # the per-degree-block pair (wrappers in block_kernels.py)
+            lib.lut_cn_block_pass.argtypes = [i, p, p, p, i, i, i, i, p]
+            lib.lut_cn_block_pass.restype = i
+            lib.lut_vn_block_pass.argtypes = [i] + [p] * 9 + [i] * 8 + [p]
+            lib.lut_vn_block_pass.restype = i
             _lib = lib
         return _lib
 
@@ -421,7 +427,8 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
     _check("cha", cha, m_c2v.dtype, (tables.nvar_pad, B), dev)
     if not 0 <= it < params.num_iters:
         raise IndexError(f"iteration {it} outside the spec's {params.num_iters}")
-    if [c.degree for c in params.classes] != [b.degree for b in tables.vn_blocks]:
+    blocks = tables.vn_blocks  # classes past the blocks': phantom true degrees
+    if [c.degree for c in params.classes[: len(blocks)]] != [b.degree for b in blocks]:
         raise ValueError("params and tables describe different degree classes")
     if dev.type == "cpu":
         return vn_std_pass_ref(m_c2v, cha, it, params, tables)

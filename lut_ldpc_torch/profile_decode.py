@@ -1,17 +1,20 @@
 """Where one decode's time goes on the card.
 
-    python -m lut_ldpc_torch.profile_decode [--code headline|peg|qc] [--reps 5]
+    python -m lut_ldpc_torch.profile_decode
+        [--code headline|peg|qc|dvbs2|dvbs2-gather] [--reps 5]
 
 Builds the codec and the ``make_staged_decoder`` decoder of the chosen
-configuration (``headline``: lut_ldpc_torch.bench; ``peg`` / ``qc``:
+configuration (``headline``: lut_ldpc_torch.bench; the others:
 lut_ldpc_torch.bench_n64800), warms up, then
 
 - times --reps decodes on the host clock (synchronized), with the peak
   device memory of one decode;
 - traces one decode with ``torch.profiler`` and prints device time by
   kernel name (the CN/VN kernels, the row gathers ``index_select``, the
-  rest), the busy total, and the idle share of the span from the first to
-  the last device operation;
+  rest), the busy total, the idle share of the span from the first to
+  the last device operation, and for a phantom-completed graph the device
+  time of the phantom row repairs (the ``lut::phantom_rows`` ranges of
+  ``ArithLUTDecoder._vn``);
 - prints the kernel launches of that decode per kernel and dtype.
 
 Needs a CUDA device.  Prints the card's name and power limit first.
@@ -50,7 +53,9 @@ def device_breakdown(prof):
     and copies in a finished profile."""
     rows, busy, t0, t1 = {}, 0.0, None, None
     for ev in prof.events():
-        if ev.device_type.name != "CUDA":
+        # kernels and copies only: a record_function range also shows on the
+        # device side, as the span of the kernels launched inside it
+        if ev.device_type.name != "CUDA" or ev.name.startswith("lut::"):
             continue
         dur = ev.time_range.elapsed_us()
         start = ev.time_range.start
@@ -66,7 +71,7 @@ def device_breakdown(prof):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--code", default="peg", choices=["headline", "peg", "qc"])
+    ap.add_argument("--code", default="peg", choices=["headline", "peg", "qc", "dvbs2", "dvbs2-gather"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
 
@@ -109,6 +114,13 @@ def main(argv=None):
     print(f"# launches: { {f'{n}/{dt}': c for (n, dt), c in qk.LAUNCHES_BY_DTYPE.items() if c} }")
     print(f"# device busy {busy:.3f} ms over a span of {span:.3f} ms: idle "
           f"{100 * (1 - busy / span):.1f} %")
+    for ev in prof.key_averages():
+        if ev.key == "lut::phantom_rows" and ev.device_type.name != "CUDA":
+            us = getattr(ev, "device_time_total", None)
+            if us is None:  # older torch
+                us = ev.cuda_time_total
+            print(f"# phantom row repairs: {us / 1e3:.3f} ms of device time in "
+                  f"{ev.count} ranges, {100 * us / 1e3 / busy:.2f} % of busy")
     for name, calls, ms in rows[:14]:
         print(f"#   {ms:10.3f} ms {100 * ms / busy:5.1f} %  x{calls:<5d} {name[:90]}")
     rest = sum(ms for _, _, ms in rows[14:])

@@ -128,6 +128,45 @@ def test_arith_spec_equals_jax(jax_peg, tmp_path, dtype):
                 assert (oj.tie_lo, oj.tie_hi) == (op.tie_lo, op.tie_hi)
 
 
+def test_dvbs2_factorization_equals_jax(tmp_path):
+    """The port's copy of core/dvbs2.py: the same Z-periodic structure,
+    permutations and phantom-completed graph from the same alist (a Z=8
+    analog of the DVB-S2 construction), and the same refusal of a matrix
+    without that structure."""
+    from lut_ldpc_tpu.core import dvbs2 as jax_dvbs2
+    from lut_ldpc_tpu.core.alist import write_alist
+
+    from lut_ldpc_torch.core import dvbs2
+
+    Zt, q = 8, 3
+    M = Zt * q
+    groups = [[0, 4, 8], [1, 5, 10, 12]]  # the second holds a weight-2 cell
+    cols = [sorted((x + t * q) % M for x in g) for g in groups for t in range(Zt)]
+    cols += [[j] if j == M - 1 else [j, j + 1] for j in range(M)]
+    H = np.zeros((M, len(cols)), np.uint8)
+    for c, rows in enumerate(cols):
+        H[rows, c] = 1
+    path = str(tmp_path / "toy.alist")
+    write_alist(path, H)
+    gj, cj, rj = jax_dvbs2.load_periodic_alist(path, Z=Zt)
+    gp, cp, rp = dvbs2.load_periodic_alist(path, Z=Zt)
+    np.testing.assert_array_equal(cj, cp)
+    np.testing.assert_array_equal(rj, rp)
+    assert gj.qc.phantoms == gp.qc.phantoms and len(gp.phantoms) == 1
+    np.testing.assert_array_equal(gj.qc.base, gp.qc.base)
+    np.testing.assert_array_equal(gj.qc.base2, gp.qc.base2)
+    assert (gp.qc.base2 >= 0).sum() == 1
+    np.testing.assert_array_equal(gj.dv_vec, gp.dv_vec)
+    for d in gj.vn_degrees:
+        np.testing.assert_array_equal(gj.vn_edge_idx[int(d)], gp.vn_edge_idx[int(d)])
+    for d in gj.cn_degrees:
+        np.testing.assert_array_equal(gj.cn_edge_idx[int(d)], gp.cn_edge_idx[int(d)])
+    np.testing.assert_array_equal(gj.to_dense(), gp.to_dense())
+    assert [p["edge"] for p in gj.phantoms] == [p["edge"] for p in gp.phantoms]
+    with pytest.raises(ValueError):
+        dvbs2.load_periodic_alist(PEG500, Z=10)
+
+
 def test_pack_rows_and_rank_equal_jax():
     rng = np.random.default_rng(0)
     for shape in ((7, 64), (13, 130), (40, 257)):

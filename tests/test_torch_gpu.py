@@ -6,7 +6,8 @@ so it runs on a GPU machine without JAX:
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance: zero on real rows (values, bits, syndrome, unanimity) and on
-decoder outputs.
+decoder outputs.  Covers the QC, std and per-degree-block kernels and the
+phantom-completed decode.
 """
 
 import numpy as np
@@ -124,3 +125,72 @@ def test_mixed_kernel_path_matches_twin_path(codec_peg):
     b = MixedArithDecoder(codec_peg, "cuda", kernels=False)(lc, lm)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+def test_block_kernels_match_plain_versions(codec_peg, dtype):
+    """cn_block_pass / vn_block_pass on every degree block of the PEG codec
+    (variable degrees 2, 3, 9, 17), B not a multiple of 256."""
+    from lut_ldpc_torch.decoder import block_kernels as bk
+
+    spec = build_arith_prefix_spec(codec_peg, dtype=dtype)
+    dec = ArithLUTDecoder(codec_peg, "cuda", spec=spec, loop="blocks")
+    assert dec.loop == "blocks"
+    it, B = spec.num_iters // 2, 300
+    rng = np.random.default_rng(0)
+    table = torch.as_tensor(root_levels(spec, it), device="cuda")
+    leaf = torch.as_tensor(np.asarray(spec.leaf_cha), device="cuda").to(table.dtype)
+    n0 = dict(qk.LAUNCHES)
+    for blk in dec.layout.cn_blocks:
+        d, n, nr = blk.degree, blk.n_pad, blk.num_nodes
+        m3 = table[torch.as_tensor(rng.integers(0, len(table), (d, n, B)), device="cuda")]
+        out, synd = bk.cn_block_pass(m3, nr)
+        r_out, r_synd = bk.cn_block_pass_ref(m3, nr)
+        assert torch.equal(out[:, :nr], r_out[:, :nr]) and torch.equal(synd, r_synd)
+    for blk, prog in zip(dec.layout.vn_blocks, dec._progs):
+        d, n, nr = blk.degree, blk.n_pad, blk.num_nodes
+        m3 = table[torch.as_tensor(rng.integers(0, len(table), (d, n, B)), device="cuda")]
+        cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (n, B)), device="cuda")]
+        out, bits, unan = bk.run_vn_block(m3, cha, prog, it, nr)
+        r_out, r_bits, r_unan = bk.run_vn_block_ref(m3, cha, prog, it, nr)
+        assert torch.equal(out[:, :nr], r_out[:, :nr])
+        assert torch.equal(bits[:nr], r_bits[:nr]) and torch.equal(unan, r_unan)
+    assert qk.LAUNCHES["cn_block_pass"] == n0["cn_block_pass"] + len(dec.layout.cn_blocks)
+    assert qk.LAUNCHES["vn_block_pass"] == n0["vn_block_pass"] + len(dec.layout.vn_blocks)
+
+
+def _toy_dvbs2():
+    """The Z=16 analog of the DVB-S2 construction (one weight-2 cell, one
+    phantom edge on the staircase wrap)."""
+    from lut_ldpc_torch.core.dvbs2 import periodic_qc_structure
+
+    Z, q = 16, 4
+    M = Z * q
+    groups = [[0, 9, 34], [3, 21, 46], [1, 6, 11, 36], [2, 7, 23, 16]]
+    cols = [np.array(sorted((x + t * q) % M for x in g))
+            for g in groups for t in range(Z)]
+    cols += [np.array([j] if j == M - 1 else [j, j + 1]) for j in range(M)]
+    st, _, _ = periodic_qc_structure(cols, len(cols), M, Z)
+    return qc.qc_expand(st)
+
+
+@pytest.mark.parametrize("loop", ["auto", "blocks"])
+def test_phantom_decode_matches_twin_path_and_golden(loop):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codec = LUTCodec.design(_toy_dvbs2(), 0.9**2, max_iters=10, Nq_Cha=16, Nq_Msg=16)
+    rng = np.random.default_rng(2)
+    y = 1.0 + 0.66 * rng.standard_normal((48, codec.nvar))
+    lc, lm = codec.quantize_channel(2.0 * y / 0.66**2)
+    lc_d, lm_d = torch.as_tensor(lc, device="cuda"), torch.as_tensor(lm, device="cuda")
+    dec = ArithLUTDecoder(codec, "cuda", loop=loop)
+    assert dec.loop == ("qc" if loop == "auto" else "blocks") and len(dec._ph) == 1
+    a = dec(lc_d, lm_d)
+    b = ArithLUTDecoder(codec, "cuda", loop=loop, kernels=False)(lc_d, lm_d)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    bits, ok, iters = (o.cpu().numpy() for o in a)
+    for f in range(48):
+        want, it = codec.decode_ref(lc[f], lm[f])
+        assert np.array_equal(bits[f], np.asarray(want))
+        assert iters[f] == abs(it) and ok[f] == (it > 0)

@@ -1,6 +1,7 @@
 """The port imports no jax and nothing of the JAX package: statically, and
 in a process where neither can be imported at all (as on a GPU machine
-that has neither)."""
+that has neither), which designs and decodes a QC codec and a
+phantom-completed one."""
 
 import ast
 import os
@@ -67,6 +68,28 @@ def test_decodes_with_jax_blocked():
         b_ref, it_ref = codec.decode_ref(lc[0], lm[0])
         assert np.array_equal(np.asarray(b_ref), bits[0].numpy())
         assert (it_ref if it_ref > 0 else codec.max_iters) == int(iters[0])
+        # a phantom-completed graph: the toy analog of the DVB-S2 matrix
+        from lut_ldpc_torch.core.dvbs2 import periodic_qc_structure
+        from lut_ldpc_torch.decoder import make_decoder
+        Z, q = 16, 4
+        M = Z * q
+        groups = [[0, 9, 34], [3, 21, 46], [1, 6, 11, 36], [2, 7, 23, 16]]
+        cols = [np.array(sorted((x + t * q) % M for x in g))
+                for g in groups for t in range(Z)]
+        cols += [np.array([j] if j == M - 1 else [j, j + 1]) for j in range(M)]
+        st, _, _ = periodic_qc_structure(cols, len(cols), M, Z)
+        codec = LUTCodec.design(qc.qc_expand(st), 0.9**2, max_iters=8,
+                                Nq_Cha=16, Nq_Msg=16)
+        assert len(codec.graph.phantoms) == 1
+        y = 1.0 + 0.66 * rng.standard_normal((8, codec.nvar))
+        lc, lm = codec.quantize_channel(2.0 * y / 0.66**2)
+        for loop in ("auto", "blocks"):
+            pdec = type(make_decoder(codec, "cpu"))(codec, "cpu", loop=loop)
+            bits, ok, iters = pdec(lc, lm)
+            for f in range(8):
+                b_ref, it_ref = codec.decode_ref(lc[f], lm[f])
+                assert np.array_equal(np.asarray(b_ref), bits[f].numpy())
+                assert abs(it_ref) == int(iters[f]) and (it_ref > 0) == bool(ok[f])
         assert sys.modules["jax"] is None
         assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
         print("OK", type(dec).__name__)

@@ -5,7 +5,10 @@ describes: the JAX package's own reload (``LUTCodec.load``) and the port's
 ``codec_from_arrays`` of the same arrays.  For a graph without QC structure
 the file keeps sorted column lists, so the reloaded realization may order a
 node's edges differently from the designed object: decoding the two reloads
-keeps both sides on one realization.
+keeps both sides on one realization.  A QC codec's file keeps its structure,
+weight-2 cells and phantom completions (``qc_base2``, ``qc_phantoms``), so a
+phantom-completed codec crosses with its pinned edges
+(tests/test_torch_phantom.py).
 """
 
 import numpy as np
