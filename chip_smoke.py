@@ -4,11 +4,17 @@
 
 Phases (each prints; any failure raises and exits non-zero):
  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
- 2. build the CUDA kernels from lut_ldpc_torch/csrc/ and print what ptxas
-    reports for each; design the N=64800 PEG codec;
+ 2. design the headline, the N=64800 PEG and the two DVB-S2 codecs, and
+    meanwhile build every CUDA library side by side, one nvcc each: the
+    table-driven kernels of lut_ldpc_torch/csrc/qc_kernels.cu and one
+    generated VN unit per arithmetic spec (lut_ldpc_torch/decoder/
+    vn_codegen.py in the frames of csrc/vn_frames.cuh); print the build
+    seconds and what ptxas reports for each kernel;
  3. the QC kernels against their plain-torch twins on the card at the
     headline shapes (N=10000 (3,6) QC code, Z=1000, B=8192), in the int16
-    and the float32 spec: values, bits, syndrome and unanimity must be equal;
+    and the float32 spec: values, bits, syndrome and unanimity must be
+    equal; the generated VN kernel also against the table-driven one, at
+    B and at the odd width B - 3, and it must be the faster of the two;
  4. the headline decode through make_staged_decoder (a HybridLUTDecoder
     with a 32-iteration int16 prefix) at 2 dB, with launch counts, checked
     against the twin path on the card and the scalar golden model;
@@ -16,11 +22,13 @@ Phases (each prints; any failure raises and exits non-zero):
     table tail runs on the card, checked the same way;
  6. the headline throughput (decoded information Mbit/s, B=8192, not cut)
     and one traced decode (device busy time, torch glue, idle share);
-    then worker processes start on the host: the PEG codec's GF(2) rank
-    and one golden-model frame each of the PEG and the DVB-S2 code (minutes
-    of host time at this size), read at the end;
+    then the PEG codec's GF(2) rank starts in a worker process; two more
+    workers, started in phase 2 as soon as the labels exist, run one
+    golden-model frame each of the PEG and the DVB-S2 code (minutes of host
+    time at this size), read at the end;
  7. the std-layout kernels against their twins at the PEG N=64800 shapes
-    (280277 edges, B=4096), int16 and float32 spec, a middle iteration;
+    (280277 edges, B=4096 and 4093), int16 and float32 spec, a middle
+    iteration, the VN kernel as in phase 3;
  8. the PEG decode through make_staged_decoder at 1.6 dB, B=4096 (a
     MixedArithDecoder: int16 kernels, then float32 kernels for the frames
     still undecided), with launch counts per kernel and dtype, checked
@@ -37,8 +45,9 @@ Phases (each prints; any failure raises and exits non-zero):
 12. a small phantom-completed graph whose phantom node has true degree 2
     (only the block loop decodes it) on the card, against the golden model;
 13. the DVB-S2 standard matrix (Z=360 form, one phantom edge) through
-    make_staged_decoder at 1.6 dB, B=4096: class, launches by dtype, peak
-    memory, the first 256 frames against the twin path on the card, and the
+    make_staged_decoder at 1.6 dB, B=4096: the generated float32 VN kernel
+    at these shapes as in phase 3, class, launches by dtype, peak memory,
+    the first 256 frames against the twin path on the card, and the
     throughput (3 calls after 2 warm-ups);
 14. the same matrix unpermuted (a degree-1 variable, no phantom) on the
     std kernels, 512 of the same frames carried through the column
@@ -46,7 +55,10 @@ Phases (each prints; any failure raises and exits non-zero):
 15. the golden-model frames of the PEG and the DVB-S2 decode from the
     workers.
 Then a JSON line of per-kernel results (time, plain twin's time, the
-card's bound for the same work), the card, and last the device line.
+card's bound for the same work; `launches` counts the wrapper's calls on the
+main path, one a pass, and for the two generated VN kernels
+`class_launches` the kernel launches these made, one a degree class), the
+card, and last the device line.
 """
 
 import json
@@ -55,6 +67,7 @@ import sys
 import time
 
 SOURCE = "lut_ldpc_torch/csrc/qc_kernels.cu"
+VN_SOURCE = "lut_ldpc_torch/csrc/vn_frames.cuh"  # frames of the generated units
 REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "vn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:873",
             "cn_std_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:1206",
@@ -63,8 +76,12 @@ REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "vn_block_pass": "lut_ldpc_tpu/decoder/pallas_kernels.py:227"}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """One line of the run's log, with the seconds since the script began."""
+    print(f"{msg} [{time.perf_counter() - T_START:.0f}s]", flush=True)
 
 
 def ptxas_summary(text):
@@ -130,7 +147,56 @@ def bounds(dec, B):
                               vn_ops_per_frame(dec.params, lay.vn_blocks) * B)}
 
 
-def kernel_vs_twin(dec, it, seed, B):
+def unit_summary(dec, B):
+    """Of the generated unit `dec` launches at B frames: per class the
+    instantiation that runs (frames a thread), its registers, stack and
+    spill bytes from ptxas, and the unit's build seconds."""
+    from lut_ldpc_torch.decoder.vn_codegen import library, ptxas_by_kernel
+
+    lib = library(dec.params, dec.dtype, dec.loop)
+    vec = lib.handle().lut_vn_vec
+    rows = {(r["cls"], r["vec"]): r for r in ptxas_by_kernel(lib.report)}
+    parts = []
+    for c, cls in enumerate(dec.params.classes[: dec.params.kernel_classes]):
+        r = rows.get((c, vec(c, B, 1)))
+        parts.append(f"d={cls.degree} x{vec(c, B, 1)}: " + (
+            f"{r['registers']} regs, {r['stack']} B stack, "
+            f"{r['spill_stores'] + r['spill_loads']} B spills" if r else "not rebuilt"))
+    return "classes " + "; ".join(parts) + f"; unit built in {lib.seconds:.1f}s"
+
+
+def vn_check(dec, it, m_c2v, cha, what, reps, plain_reps):
+    """The generated VN kernel of `dec` at iteration `it` on (m_c2v, cha) and
+    on the same input cut to an odd width (3 frames fewer: one frame a
+    thread, unaligned rows): equal to the table-driven kernel and to the
+    plain version (lut_ldpc_torch.profile_vn.check_vn raises otherwise), and
+    faster than the table-driven kernel.  Logs one line per width; returns
+    the full-width result."""
+    from lut_ldpc_torch import profile_vn as pv
+
+    B = m_c2v.shape[1]
+    bnd = bounds(dec, B)["vn"]
+    full = None
+    for width in (B, B - 3):
+        if width == B:
+            r = pv.check_vn(dec, it, m_c2v, cha, reps=reps, plain_reps=plain_reps)
+        else:
+            r = pv.check_vn(dec, it, m_c2v[:, :width].contiguous(),
+                            cha[:, :width].contiguous(), reps=max(2, reps // 4))
+        if r["ms"] >= r["generic_ms"]:
+            raise AssertionError(f"{what}: generated {r['name']} ({r['ms']:.3f} ms) is not "
+                                 f"faster than the table-driven kernel "
+                                 f"({r['generic_ms']:.3f} ms) at B={width}")
+        log(f"# {what} B={width}: generated {r['name']} equal to the table-driven kernel "
+            f"and the plain version; generated {r['ms']:.4f} ms, table-driven "
+            f"{r['generic_ms']:.4f} ms"
+            + (f", plain {r['plain_ms']:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+               if width == B else "") + "; " + unit_summary(dec, width))
+        full = full or r
+    return full
+
+
+def kernel_vs_twin(dec, it, seed, B, what):
     """CN then VN kernel of `dec`'s path (QC or std) against its twin on one
     (rows, B) input; returns {kernel name: (max_abs_err, kernel ms, twin ms)}."""
     import numpy as np
@@ -140,12 +206,11 @@ def kernel_vs_twin(dec, it, seed, B):
     from lut_ldpc_torch.decoder.hybrid import root_levels
     from lut_ldpc_torch.profile_kernels import cuda_ms
 
-    tab, prm, spec = dec.tables, dec.params, dec.spec
+    tab, spec = dec.tables, dec.spec
     dev = dec.device
     qc = dec.plan is not None
     cn, cn_ref = (qk.cn_qc_pass, qk.cn_qc_pass_ref) if qc else (qk.cn_std_pass, qk.cn_std_pass_ref)
-    vn, vn_ref = (qk.vn_qc_pass, qk.vn_qc_pass_ref) if qc else (qk.vn_std_pass, qk.vn_std_pass_ref)
-    cn_name, vn_name = ("cn_qc_pass", "vn_qc_pass") if qc else ("cn_std_pass", "vn_std_pass")
+    cn_name = "cn_qc_pass" if qc else "cn_std_pass"
     rng = np.random.default_rng(seed)
     table = torch.as_tensor(root_levels(spec, it), device=dev).to(dec.dtype)
 
@@ -156,16 +221,12 @@ def kernel_vs_twin(dec, it, seed, B):
     m_in = values(tab.rows_vn if qc else tab.rows_cn)
     cha_t = torch.as_tensor(np.asarray(spec.leaf_cha), device=dev).to(dec.dtype)
     cha = cha_t[torch.as_tensor(rng.integers(0, len(cha_t), (tab.nvar_pad, B)), device=dev)]
-    real_cn, real_vn, nodes = tab.cn_real, tab.vn_real, tab.node_real
-
-    def err(a, b):
-        return float((a.double() - b.double()).abs().max())
 
     out = {}
     m_cn_k, synd_k = cn(m_in, tab)
     m_cn_t, synd_t = cn_ref(m_in, tab)
     torch.cuda.synchronize()
-    e = err(m_cn_k[real_cn], m_cn_t[real_cn])
+    e = float((m_cn_k[tab.cn_real].double() - m_cn_t[tab.cn_real].double()).abs().max())
     if e != 0 or not torch.equal(synd_k, synd_t):
         raise AssertionError(f"{cn_name} disagrees with its twin (max err {e})")
     out[cn_name] = (e, cuda_ms(lambda: cn(m_in, tab), 20),
@@ -174,17 +235,9 @@ def kernel_vs_twin(dec, it, seed, B):
     # the QC VN kernel reads the CN-grouped array, the std one the VN-grouped
     m_c2v = m_cn_t if qc else values(tab.rows_vn)
     del m_in, m_cn_t
-    m_vn_k, bits_k, unan_k = vn(m_c2v, cha, it, prm, tab)
-    m_vn_t, bits_t, unan_t = vn_ref(m_c2v, cha, it, prm, tab)
-    torch.cuda.synchronize()
-    e = err(m_vn_k[real_vn], m_vn_t[real_vn])
-    if (e != 0 or not torch.equal(bits_k[nodes], bits_t[nodes])
-            or not torch.equal(unan_k, unan_t)):
-        raise AssertionError(f"{vn_name} disagrees with its twin (max err {e})")
-    del m_vn_k, m_vn_t
-    out[vn_name] = (e, cuda_ms(lambda: vn(m_c2v, cha, it, prm, tab), 20 if qc else 5),
-                    cuda_ms(lambda: vn_ref(m_c2v, cha, it, prm, tab), 3 if qc else 1))
-    log(f"#   synd true {int(synd_k.sum())}/{B}, unan true {int(unan_k.sum())}/{B}")
+    r = vn_check(dec, it, m_c2v, cha, what, 20 if qc else 5, 3 if qc else 1)
+    out[r["name"]] = (r["max_abs_err"], r["ms"], r["plain_ms"])
+    log(f"#   synd true {int(synd_k.sum())}/{B}, unan true {r['unan_true']}/{B}")
     return out
 
 
@@ -199,7 +252,7 @@ def kernels_both_specs(codec, dev, B, phase, results):
         spec = build_arith_prefix_spec(codec, dtype=dt)
         dec = ArithLUTDecoder(codec, dev, spec=spec)
         it = spec.num_iters // 2
-        res = kernel_vs_twin(dec, it, seed=1, B=B)
+        res = kernel_vs_twin(dec, it, 1, B, f"phase {phase}: {np.dtype(dt).name} it={it}")
         bnd = bounds(dec, B)
         if dt == np.int16:
             evals = {c.degree: sum(2 + straddled(op, c.degree) for op in c.ops)
@@ -220,6 +273,72 @@ def kernels_both_specs(codec, dev, B, phase, results):
             else:
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
         del dec
+
+
+def start_table_build():
+    """Phase 2: compile the table-driven kernels in a thread; returns the
+    thread and the list its result lands in."""
+    import threading
+
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    built = []
+    thread = threading.Thread(target=lambda: built.append(qk.build_kernels(force=True)))
+    thread.start()
+    return thread, built
+
+
+def start_vn_builds(codecs, libs):
+    """Phase 2: start one nvcc for the generated VN unit of every spec the
+    later phases decode with (found through a decoder on the CPU, which
+    needs no library); none waits for another.  codecs: name -> (codec,
+    [(spec function, dtype)]); fills libs: (tree key, dtype, loop) ->
+    (label, VNLibrary, classes)."""
+    import numpy as np
+
+    from lut_ldpc_torch.decoder import ArithLUTDecoder, vn_codegen
+
+    for name, (codec, spec_fns) in codecs.items():
+        for build, dt in spec_fns:
+            dec = ArithLUTDecoder(codec, "cpu", spec=build(codec, dtype=dt))
+            key = (dec.params.tree_key, dec.dtype, dec.loop)
+            if key not in libs:  # specs of one structure share a unit
+                libs[key] = (f"{name} {np.dtype(dt).name} {dec.loop}",
+                             vn_codegen.start_build(dec.params, dec.dtype, dec.loop,
+                                                    force=True),
+                             dec.params.classes)
+
+
+def finish_builds(thread, built, libs):
+    from lut_ldpc_torch import profile_vn as pv
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    thread.join()
+    if not built:
+        raise RuntimeError("the build of the table-driven kernels failed")
+    _, secs, report = built[0]
+    log(f"# phase 2: built {qk.KERNEL_SOURCE} in {secs:.1f}s")
+    for line in ptxas_summary(report):
+        log(f"#   ptxas {line}")
+    for label, lib, classes in libs.values():
+        lib.handle()
+        for line in pv.describe_build(lib, classes):
+            log(f"# phase 2: generated VN kernels, {label}: {line}")
+
+
+def generated_only(name, per_pass):
+    """After a main-path decode: every VN pass went through the generated
+    kernels (per_pass class launches each), none through the table-driven
+    one.  Returns the class launches."""
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    got, want = qk.GENERATED_LAUNCHES[name], qk.LAUNCHES[name] * per_pass
+    if got != want or want < 1:
+        raise AssertionError(f"{name}: {got} generated class launches in "
+                             f"{qk.LAUNCHES[name]} passes, expected {want}")
+    log(f"#   {name}: {qk.LAUNCHES[name]} passes, all on the generated kernels "
+        f"({got} class launches)")
+    return got
 
 
 def check_golden(codec, lc, lm, out, frames):
@@ -250,7 +369,7 @@ def check_shapes(out, B, nvar):
         raise AssertionError("unexpected output shapes")
 
 
-def headline(dev, smi, results, launches):
+def headline(dev, smi, codec, results, launches):
     """Phases 3-6: the N=10000 QC headline of lut_ldpc_torch.bench."""
     import numpy as np
     import torch
@@ -259,10 +378,6 @@ def headline(dev, smi, results, launches):
     from lut_ldpc_torch.decoder import HybridLUTDecoder, make_staged_decoder
     from lut_ldpc_torch.decoder import qc_kernels as qk
 
-    t0 = time.perf_counter()
-    codec = bench.build_codec()
-    log(f"# headline codec designed in {time.perf_counter() - t0:.1f}s (N={codec.nvar}, "
-        f"k={codec.k}, {codec.max_iters} iterations)")
     B = bench.BATCH
     kernels_both_specs(codec, dev, B, 3, results)
 
@@ -278,6 +393,8 @@ def headline(dev, smi, results, launches):
         launches[name] = qk.LAUNCHES[name]
         if launches[name] < 1:
             raise AssertionError(f"headline path skipped {name}")
+    results["vn_qc_pass"]["class_launches"] = generated_only(
+        "vn_qc_pass", len(dec.pre.tables.vn_runs))
     check_shapes(out, B, codec.nvar)
     _, ok, iters = out
     log(f"# phase 4: {type(dec).__name__} S={dec.S}: launches {dict(qk.LAUNCHES)}, "
@@ -322,11 +439,12 @@ def headline(dev, smi, results, launches):
     rows, busy, span = device_breakdown(prof)
     if busy == 0.0:
         raise AssertionError("the profiler recorded no device time")
-    kern = sum(ms for name, _, ms in rows if "_qc_kernel" in name)
+    kern = sum(ms for name, _, ms in rows
+               if "_qc_kernel" in name or "_qc_class_kernel" in name)
     log(f"#   traced decode: wall {wall:.3f} ms, device span {span:.3f} ms, busy "
         f"{busy:.3f} ms (CN+VN kernels {kern:.3f}, torch glue {busy - kern:.3f}), "
         f"idle {100 * (1 - busy / span):.1f} % of the span")
-    return codec, dec, lc_d, lm_d
+    return dec, lc_d, lm_d
 
 
 def peg(dev, smi, codec, lc, lm, rank, results, launches):
@@ -362,6 +480,8 @@ def peg(dev, smi, codec, lc, lm, rank, results, launches):
         for dt in ("int16", "float32"):
             if qk.LAUNCHES_BY_DTYPE[name, dt] < 1:
                 raise AssertionError(f"PEG path launched no {name} in {dt}: {by_dtype}")
+    results["vn_std_pass"]["class_launches"] = generated_only(
+        "vn_std_pass", len(inner.pre.tables.vn_blocks))
     check_shapes(out, B, codec.nvar)
     _, ok, iters = out
     past = int((iters > inner.S16).sum())
@@ -492,13 +612,13 @@ def phantom_toy(dev):
         f"{float(ok.mean()):.3f}), launches {dict(qk.LAUNCHES)}")
 
 
-def dvbs2(dev, smi, codec, lc, lm):
+def dvbs2(dev, smi, codec, codec_g, lc, lm):
     """Phases 13-14: the DVB-S2 standard matrix of lut_ldpc_torch.bench_n64800;
     returns frame 0's decoded bits and iteration count."""
     import torch
 
     from lut_ldpc_torch import bench, bench_n64800 as b64
-    from lut_ldpc_torch.decoder import ArithLUTDecoder, LUTCodec, make_staged_decoder
+    from lut_ldpc_torch.decoder import ArithLUTDecoder, make_staged_decoder
     from lut_ldpc_torch.decoder import qc_kernels as qk
 
     B = b64.BATCH
@@ -512,6 +632,14 @@ def dvbs2(dev, smi, codec, lc, lm):
                              f"with one true-degree-1 phantom, got {type(dec).__name__}")
     log(f"# phase 13: {type(dec).__name__} ({dec.dtype}, loop {dec.loop}, S={dec.S}) built "
         f"in {time.perf_counter() - t0:.1f}s")
+    from lut_ldpc_torch import profile_vn as pv
+
+    it = dec.S // 2
+    m_c2v, cha = pv.vn_input(dec, it, B)
+    r = vn_check(dec, it, m_c2v, cha, f"phase 13: DVB-S2 float32 it={it}", 5, 1)
+    log(f"#   unan true {r['unan_true']}/{B}")
+    del m_c2v, cha
+    torch.cuda.empty_cache()
     qk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     out = dec(lc_d, lm_d)
@@ -521,6 +649,7 @@ def dvbs2(dev, smi, codec, lc, lm):
     for name in ("cn_qc_pass", "vn_qc_pass"):
         if qk.LAUNCHES_BY_DTYPE[name, "float32"] < 1:
             raise AssertionError(f"DVB-S2 path launched no {name} in float32: {by_dtype}")
+    generated_only("vn_qc_pass", len(dec.tables.vn_runs))
     check_shapes(out, B, codec.nvar)
     bits, ok, iters = out
     bnd = bounds(dec, B)
@@ -545,8 +674,6 @@ def dvbs2(dev, smi, codec, lc, lm):
     n = 512
     perm = torch.as_tensor(graph.qc_col_perm, device=dev)
     t0 = time.perf_counter()
-    codec_g = LUTCodec.design(b64.unpermuted_graph(graph), b64.DESIGN_THR**2,
-                              max_iters=b64.MAX_ITERS, Nq_Cha=16, Nq_Msg=16)
     dec_g = make_staged_decoder(codec_g, dev, max_batch=n)
     if (not isinstance(dec_g, ArithLUTDecoder) or dec_g.loop != "std" or dec_g._ph
             or dec_g.dtype != torch.float32 or 1 not in codec_g.graph.vn_degrees):
@@ -558,7 +685,7 @@ def dvbs2(dev, smi, codec, lc, lm):
         raise AssertionError("the unpermuted decode launched no std kernel")
     same((bits[:n][:, perm], ok[:n], iters[:n]), out_g, "DVB-S2 permuted vs unpermuted")
     log(f"# phase 14: unpermuted matrix on the std kernels ({time.perf_counter() - t0:.1f}s "
-        f"with design and build), {n} frames: launches {dict(qk.LAUNCHES)}; ok and iters "
+        f"with the decoder's build), {n} frames: launches {dict(qk.LAUNCHES)}; ok and iters "
         f"equal to the permuted decode, bits equal after un-permuting")
     return bits[0].cpu().numpy(), int(iters[0])
 
@@ -589,36 +716,57 @@ def main():
     import multiprocessing
     import os
 
+    import numpy as np
+
     from lut_ldpc_torch import bench, bench_n64800 as b64
-    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.decoder import (LUTCodec, build_arith_prefix_spec,
+                                        build_arith_spec)
 
     dev = torch.device("cuda")
-    _, secs, report = qk.build_kernels(force=True)
-    log(f"# phase 2: built {qk.KERNEL_SOURCE} in {secs:.1f}s")
-    for line in ptxas_summary(report):
-        log(f"#   ptxas {line}")
     os.environ.setdefault("LUT_DECODE_MEM_BUDGET", str(b64.MEM_BUDGET))
 
+    t0 = time.perf_counter()
+    head_codec = bench.build_codec()
+    log(f"# phase 2: headline codec designed in {time.perf_counter() - t0:.1f}s "
+        f"(N={head_codec.nvar}, k={head_codec.k}, {head_codec.max_iters} iterations)")
     t0 = time.perf_counter()
     codec = b64.build_codec("peg")
     log(f"#   PEG codec designed in {time.perf_counter() - t0:.1f}s (N={codec.nvar}, "
         f"{codec.graph.num_edges} edges, {codec.max_iters} iterations)")
-    lc, lm = bench.channel_labels(codec, b64.BATCH, b64.SNR_DB)
     t0 = time.perf_counter()
     dvb_codec = b64.build_codec("dvbs2")
     log(f"#   DVB-S2 codec designed in {time.perf_counter() - t0:.1f}s (N={dvb_codec.nvar}, "
         f"Z={dvb_codec.graph.qc.Z}, {dvb_codec.graph.num_edges} edges with "
         f"{len(dvb_codec.graph.phantoms)} phantom, k={dvb_codec.k})")
-    dvb_lc, dvb_lm = bench.channel_labels(dvb_codec, b64.BATCH, b64.SNR_DB)
+    prefix = [(build_arith_prefix_spec, np.int16), (build_arith_prefix_spec, np.float32)]
+    full = [(build_arith_spec, np.float32)]
     results, launches = {}, {}
-    head_codec, head_dec, head_lc, head_lm = headline(dev, smi, results, launches)
-    torch.cuda.empty_cache()
-    # the workers start after the headline's timed phase (they load the
-    # host); leaving the block terminates them, also after a failure
+    # the golden model takes minutes a frame at N=64800: its two workers
+    # start as soon as their labels exist and run beside everything below
+    # (two of the host's cores); leaving the block terminates the workers,
+    # also after a failure
     with multiprocessing.get_context("spawn").Pool(3) as pool:
-        rank = pool.apply_async(b64.info_bits, ("peg",))
+        lc, lm = bench.channel_labels(codec, b64.BATCH, b64.SNR_DB)
         golden = pool.apply_async(b64.golden_frame, ("peg", lc[0], lm[0]))
+        t0 = time.perf_counter()
+        table_build, libs = start_table_build(), {}
+        start_vn_builds({"headline": (head_codec, prefix), "PEG": (codec, prefix + full),
+                         "DVB-S2": (dvb_codec, full)}, libs)
+        dvb_lc, dvb_lm = bench.channel_labels(dvb_codec, b64.BATCH, b64.SNR_DB)
         golden_dvb = pool.apply_async(b64.golden_frame, ("dvbs2", dvb_lc[0], dvb_lm[0]))
+        # the unpermuted DVB-S2 matrix: designed while the compilers run
+        dvb_codec_g = LUTCodec.design(b64.unpermuted_graph(dvb_codec.graph),
+                                      b64.DESIGN_THR**2, max_iters=b64.MAX_ITERS,
+                                      Nq_Cha=16, Nq_Msg=16)
+        start_vn_builds({"DVB-S2 unpermuted": (dvb_codec_g, full)}, libs)
+        finish_builds(*table_build, libs)
+        log(f"#   {1 + len(libs)} libraries built side by side in "
+            f"{time.perf_counter() - t0:.1f}s")
+        head_dec, head_lc, head_lm = headline(dev, smi, head_codec, results, launches)
+        torch.cuda.empty_cache()
+        # the PEG rank (a third busy worker) starts after the headline's
+        # timed phase
+        rank = pool.apply_async(b64.info_bits, ("peg",))
         peg_frame0 = peg(dev, smi, codec, lc, lm, rank, results, launches)
         torch.cuda.empty_cache()
         block_kernels(dev, head_codec, codec, results)
@@ -626,13 +774,15 @@ def main():
         del head_dec, head_lc, head_lm
         phantom_toy(dev)
         torch.cuda.empty_cache()
-        dvb_frame0 = dvbs2(dev, smi, dvb_codec, dvb_lc, dvb_lm)
+        dvb_frame0 = dvbs2(dev, smi, dvb_codec, dvb_codec_g, dvb_lc, dvb_lm)
         check_worker_golden("PEG", golden, peg_frame0, codec.max_iters)
         check_worker_golden("DVB-S2", golden_dvb, dvb_frame0, codec.max_iters)
 
     print(json.dumps({"kernels": [
-        dict(name=n, route="cuda", source=SOURCE, replaces=REPLACES[n],
-             launches=launches[n], **results[n]) for n in REPLACES]}))
+        dict(name=n, route="cuda",
+             source=VN_SOURCE if n in ("vn_qc_pass", "vn_std_pass") else SOURCE,
+             replaces=REPLACES[n], launches=launches[n], **results[n])
+        for n in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,7 @@ from ..device import resolve_device
 from . import block_kernels as bk
 from . import fast_layout
 from . import qc_kernels as qk
+from . import vn_codegen
 from .arith import ArithBuildError, build_arith_spec
 from .layout import leave_one_out_idx
 from .params import (arith_tensors, qc_tables, std_tables, torch_dtype,
@@ -182,6 +183,10 @@ class ArithLUTDecoder:
             p["cls"] = len(blocks) + true_degs.index(p["td"])
         self.params = vn_params(self.spec, self.layout, self.device,
                                 extra_degrees=true_degs)
+        if kernels and self.device.type == "cuda" and self.loop != "blocks":
+            # the spec's generated VN kernels: built (or found) here, not
+            # inside the first launch
+            vn_codegen.library(self.params, self.dtype, self.loop).handle()
         self.ten = arith_tensors(self.spec, self.layout, self.device)
         spec_di = [self.spec.degrees.index(d)
                    for d in [blk.degree for blk in blocks] + true_degs]

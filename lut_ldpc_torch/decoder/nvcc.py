@@ -1,0 +1,28 @@
+"""Where the port's CUDA libraries are built and with which flags.
+
+Every kernel library is a shared object with a plain C interface, compiled
+with nvcc for sm_90a into ``build/torch_kernels/`` beside the package and
+loaded with ctypes.  ``--fmad=false`` and no fast-math: the float32 specs are
+proven exact for separately rounded left-to-right sums only.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "nvcc_path"]
+
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_ROOT, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_ROOT), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path

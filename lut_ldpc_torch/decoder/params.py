@@ -26,6 +26,7 @@ freshly designed one.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -101,6 +102,16 @@ class VNParams:
     opnds: torch.Tensor     # (total_operands,) int32
     num_iters: int
     max_ops: int            # most ops in one class tree
+    # the first kernel_classes classes are the layout's blocks, the ones a
+    # kernel row can refer to; the rest are phantom true degrees
+    kernel_classes: int
+    # prm in host memory: the generated kernels take an iteration's row as
+    # a kernel argument
+    prm_host: np.ndarray
+    # digest of the kernel classes' tree structure (everything the generated
+    # kernel source depends on but the storage type and the row addressing):
+    # vn_codegen finds the spec's library by it
+    tree_key: str
 
 
 def vn_params(spec, lay, device, extra_degrees=()) -> VNParams:
@@ -167,7 +178,10 @@ def vn_params(spec, lay, device, extra_degrees=()) -> VNParams:
         cls_deg=_i32(degs, device), cls_op0=_i32(op0, device),
         cls_nops=_i32(nops, device), op_info=_i32(op_info, device),
         opnds=_i32(opnds, device), num_iters=S,
-        max_ops=max(len(c.ops) for c in classes))
+        max_ops=max(len(c.ops) for c in classes),
+        kernel_classes=len(lay.vn_blocks), prm_host=np.ascontiguousarray(prm),
+        tree_key=hashlib.sha256(
+            repr(classes[: len(lay.vn_blocks)]).encode()).hexdigest())
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +207,7 @@ class QCTables:
     vn_dst: torch.Tensor
     vn_node: torch.Tensor
     vn_cls: torch.Tensor
+    vn_runs: tuple   # (first row, end row, class) runs of vn_cls
     # plain-twin gathers, one entry per run of rows of one class:
     # cn_plain: (src (d, n) int64, dst (d, n) int64)
     # vn_plain: (class idx, src (d, n), dst (d, n), node (n,))
@@ -258,7 +273,8 @@ def qc_tables(plan, lay, device) -> QCTables:
                          _i64(rows(cn_dst, zero, lo, hi, d), device)))
     vzero = np.zeros_like(vn_shift)
     vn_plain = []
-    for lo, hi, ci in _runs(list(vn_cls)):
+    vn_runs = tuple((lo, hi, int(ci)) for lo, hi, ci in _runs(list(vn_cls)))
+    for lo, hi, ci in vn_runs:
         d = plan.vn_degrees[ci]
         node = (vn_node[lo:hi, None] + z[None, :]).reshape(-1)
         vn_plain.append((int(ci), _i64(rows(vn_src, vn_shift, lo, hi, d), device),
@@ -272,7 +288,8 @@ def qc_tables(plan, lay, device) -> QCTables:
         cn_dst=_i32(cn_dst, device), cn_deg=_i32(cn_deg, device),
         vn_src=_i32(vn_src, device), vn_shift=_i32(vn_shift, device),
         vn_dst=_i32(vn_dst, device), vn_node=_i32(vn_node, device),
-        vn_cls=_i32(vn_cls, device), cn_plain=cn_plain, vn_plain=vn_plain,
+        vn_cls=_i32(vn_cls, device), vn_runs=vn_runs, cn_plain=cn_plain,
+        vn_plain=vn_plain,
         cn_real=_i64(_real_rows(lay.cn_blocks), device),
         vn_real=_i64(_real_rows(lay.vn_blocks), device),
         node_real=_i64(_real_nodes(lay.vn_blocks), device))

@@ -16,6 +16,13 @@ On a QC graph every circulant shift is a modular row index in the load; on
 a std graph each degree class is a run of contiguous slot planes and the
 permutation between the two groupings is a row gather done by the caller.
 
+The VN passes launch kernels generated for the decoder's arithmetic spec
+(``vn_codegen``: the class trees as straight-line code in the frames of
+``csrc/vn_frames.cuh``, one launch per degree class); the table-driven
+``vn_qc_kernel`` / ``vn_std_kernel`` of ``qc_kernels.cu``, one binary for
+every codec, run only when a caller passes ``generic=True`` (a second
+witness and the time to compare with).
+
 The CUDA source is compiled with nvcc at first use into
 ``build/torch_kernels/`` (a shared library with a plain C interface,
 loaded with ctypes) and launched on the current stream.  Each wrapper
@@ -26,27 +33,24 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import subprocess
 import threading
 import time
 
 import torch
 
+from . import vn_codegen
+from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path
 from .params import QCTables, StdTables, VNParams
 
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
-           "build_kernels", "LAUNCHES", "LAUNCHES_BY_DTYPE", "reset_launches",
+           "build_kernels", "LAUNCHES", "LAUNCHES_BY_DTYPE",
+           "GENERATED_LAUNCHES", "reset_launches",
            "KERNEL_SOURCE"]
 
-_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG_ROOT, "csrc", "qc_kernels.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_ROOT), "build", "torch_kernels")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libqc_kernels.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+KERNEL_SOURCE = os.path.join(CSRC_DIR, "qc_kernels.cu")
+_LIB_PATH = os.path.join(BUILD_DIR, "libqc_kernels.so")
 MAX_DEGREE = 32  # widest row table the kernels are instantiated for
 MAX_TREE_OPS = 32  # ops of one VN tree (kMaxOps in the source)
 
@@ -55,13 +59,16 @@ LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
             "vn_std_pass": 0, "cn_block_pass": 0, "vn_block_pass": 0}
 LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
                      for dt in ("int16", "float32")}
+# launches of generated class kernels (several a VN pass); a pass through the
+# table-driven kernel adds nothing here
+GENERATED_LAUNCHES = {"vn_qc_pass": 0, "vn_std_pass": 0}
 
 _lock = threading.Lock()
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE):
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, GENERATED_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -71,23 +78,16 @@ def _launched(name: str, dtype: torch.dtype) -> None:
     LAUNCHES_BY_DTYPE[name, str(dtype).removeprefix("torch.")] += 1
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return path
-
-
 def build_kernels(force: bool = False) -> tuple:
     """Compile the kernel library if missing or older than its source;
     returns (library path, seconds spent compiling, ptxas -v report)."""
     if (not force and os.path.exists(_LIB_PATH)
             and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)):
         return _LIB_PATH, 0.0, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
@@ -305,14 +305,25 @@ def _check_vn_limits(params: VNParams, max_dv: int, dev) -> None:
         raise ValueError(f"params on {params.prm.device}, expected {dev}")
 
 
+def _aligned(*tensors) -> int:
+    """1 when every array starts on a 16-byte boundary (vector accesses)."""
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _prm_row(params: VNParams, it: int) -> int:
+    """Host address of iteration `it`'s parameter row."""
+    row = params.prm_host
+    return row.ctypes.data + int(it) * row.strides[0]
+
+
 def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
-               params: VNParams, tables: QCTables):
+               params: VNParams, tables: QCTables, generic: bool = False):
     """VN pass for iteration `it`: c2v circulant rolls, per-class
     leave-one-out threshold trees, hard bits and per-frame sign unanimity.
-    CUDA tensors launch the kernel (replaces
-    lut_ldpc_tpu/decoder/qc_kernels.py::vn_qc_pass); CPU tensors run
-    vn_qc_pass_ref.  The iteration's parameters are read on the device from
-    params.prm[it]."""
+    CUDA tensors launch the kernels generated for the spec, one launch per
+    run of block-rows of one class (replaces
+    lut_ldpc_tpu/decoder/qc_kernels.py::vn_qc_pass), or with generic=True
+    the table-driven kernel; CPU tensors run vn_qc_pass_ref."""
     dev = m_cn.device
     _check_msgs(m_cn, tables.rows_cn, tables.vn_src.device)
     B = m_cn.shape[1]
@@ -321,23 +332,36 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
         raise IndexError(f"iteration {it} outside the spec's {params.num_iters}")
     if dev.type == "cpu":
         return vn_qc_pass_ref(m_cn, cha, it, params, tables)
-    _check_vn_limits(params, tables.max_dv, dev)
     R = tables.vn_src.shape[0]
     _check_grid(R * tables.Z, B)
     m_vn = torch.empty((tables.rows_vn, B), dtype=m_cn.dtype, device=dev)
     bits = torch.empty((tables.nvar_pad, B), dtype=torch.int8, device=dev)
     unan = torch.ones(B, dtype=torch.bool, device=dev)
-    err = _load().lut_vn_qc_pass(
-        int(m_cn.dtype == torch.float32), m_cn.data_ptr(), cha.data_ptr(),
-        m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
-        tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
-        tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(),
-        tables.vn_cls.data_ptr(), params.cls_deg.data_ptr(),
-        params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
-        params.op_info.data_ptr(), params.opnds.data_ptr(),
-        params.prm.data_ptr(), int(it), params.prm.shape[1], R, tables.Z,
-        tables.max_dv, B, _stream(dev))
-    _raise_on(err, "vn_qc_pass")
+    if generic:
+        _check_vn_limits(params, tables.max_dv, dev)
+        err = _load().lut_vn_qc_pass(
+            int(m_cn.dtype == torch.float32), m_cn.data_ptr(), cha.data_ptr(),
+            m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+            tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
+            tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(),
+            tables.vn_cls.data_ptr(), params.cls_deg.data_ptr(),
+            params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
+            params.op_info.data_ptr(), params.opnds.data_ptr(),
+            params.prm.data_ptr(), int(it), params.prm.shape[1], R, tables.Z,
+            tables.max_dv, B, _stream(dev))
+        _raise_on(err, "vn_qc_pass")
+    else:
+        fn = vn_codegen.library(params, m_cn.dtype, "qc").handle().lut_vn_qc_class
+        aligned = _aligned(m_cn, cha, m_vn, bits)
+        row, stream = _prm_row(params, it), _stream(dev)
+        for lo, hi, ci in tables.vn_runs:
+            err = fn(ci, m_cn.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
+                     bits.data_ptr(), unan.data_ptr(), tables.vn_src.data_ptr(),
+                     tables.vn_shift.data_ptr(), tables.vn_dst.data_ptr(),
+                     tables.vn_node.data_ptr(), lo, hi - lo, tables.Z,
+                     tables.max_dv, B, aligned, row, stream)
+            _raise_on(err, "vn_qc_pass")
+            GENERATED_LAUNCHES["vn_qc_pass"] += 1
     _launched("vn_qc_pass", m_cn.dtype)
     return m_vn, bits, unan
 
@@ -414,12 +438,13 @@ def vn_std_pass_ref(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
 
 
 def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
-                params: VNParams, tables: StdTables):
+                params: VNParams, tables: StdTables, generic: bool = False):
     """VN pass for iteration `it` on the VN-grouped slot-major array
     (already permuted): per-class leave-one-out threshold trees, hard bits
     and per-frame sign unanimity over the real variables.  CUDA tensors
-    launch the kernel (replaces
-    lut_ldpc_tpu/decoder/qc_kernels.py::vn_std_pass); CPU tensors run
+    launch the kernels generated for the spec, one launch per degree class
+    (replaces lut_ldpc_tpu/decoder/qc_kernels.py::vn_std_pass), or with
+    generic=True the table-driven kernel; CPU tensors run
     vn_std_pass_ref."""
     dev = m_c2v.device
     _check_msgs(m_c2v, tables.rows_vn, tables.vn_cls.device)
@@ -432,19 +457,30 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
         raise ValueError("params and tables describe different degree classes")
     if dev.type == "cpu":
         return vn_std_pass_ref(m_c2v, cha, it, params, tables)
-    _check_vn_limits(params, tables.max_dv, dev)
     _check_grid(tables.nvar_pad, B)
     m_vn = torch.empty_like(m_c2v)
     bits = torch.empty((tables.nvar_pad, B), dtype=torch.int8, device=dev)
     unan = torch.ones(B, dtype=torch.bool, device=dev)
-    err = _load().lut_vn_std_pass(
-        int(m_c2v.dtype == torch.float32), m_c2v.data_ptr(), cha.data_ptr(),
-        m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
-        tables.vn_cls.data_ptr(), len(tables.vn_blocks),
-        params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
-        params.op_info.data_ptr(), params.opnds.data_ptr(),
-        params.prm.data_ptr(), int(it), params.prm.shape[1],
-        tables.nvar_pad, tables.max_dv, B, _stream(dev))
-    _raise_on(err, "vn_std_pass")
+    if generic:
+        _check_vn_limits(params, tables.max_dv, dev)
+        err = _load().lut_vn_std_pass(
+            int(m_c2v.dtype == torch.float32), m_c2v.data_ptr(), cha.data_ptr(),
+            m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+            tables.vn_cls.data_ptr(), len(tables.vn_blocks),
+            params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
+            params.op_info.data_ptr(), params.opnds.data_ptr(),
+            params.prm.data_ptr(), int(it), params.prm.shape[1],
+            tables.nvar_pad, tables.max_dv, B, _stream(dev))
+        _raise_on(err, "vn_std_pass")
+    else:
+        fn = vn_codegen.library(params, m_c2v.dtype, "std").handle().lut_vn_std_class
+        aligned = _aligned(m_c2v, cha, m_vn, bits)
+        row, stream = _prm_row(params, it), _stream(dev)
+        for ci, blk in enumerate(blocks):
+            err = fn(ci, m_c2v.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
+                     bits.data_ptr(), unan.data_ptr(), blk.node_start, blk.n_pad,
+                     blk.num_nodes, blk.edge_start, B, aligned, row, stream)
+            _raise_on(err, "vn_std_pass")
+            GENERATED_LAUNCHES["vn_std_pass"] += 1
     _launched("vn_std_pass", m_c2v.dtype)
     return m_vn, bits, unan

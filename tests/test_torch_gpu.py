@@ -6,8 +6,10 @@ so it runs on a GPU machine without JAX:
     python -m pytest -o addopts="" --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerance: zero on real rows (values, bits, syndrome, unanimity) and on
-decoder outputs.  Covers the QC, std and per-degree-block kernels and the
-phantom-completed decode.
+decoder outputs.  Covers the QC, std and per-degree-block kernels, the
+generated VN kernels against the table-driven ones and the plain versions
+(both dtypes, an even and an odd batch width), and a mixed-precision and a
+phantom-completed decode end to end.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ from lut_ldpc_torch.core import qc
 from lut_ldpc_torch.core.tanner import TannerGraph
 from lut_ldpc_torch.decoder import (ArithLUTDecoder, HybridLUTDecoder, LUTCodec,
                                     MixedArithDecoder, build_arith_prefix_spec)
-from lut_ldpc_torch.decoder import qc_kernels as qk
+from lut_ldpc_torch.decoder import qc_kernels as qk, vn_codegen
 from lut_ldpc_torch.decoder.hybrid import root_levels
 from lut_ldpc_torch.ops.pmf import snr2sig
 
@@ -71,6 +73,49 @@ def test_hybrid_kernel_path_matches_twin_path(codec):
         assert torch.equal(x, y)
 
 
+def _vn_case(codec, dtype, B):
+    """(decoder, iteration, VN input, channel values) on the card."""
+    spec = build_arith_prefix_spec(codec, dtype=dtype)
+    dec = ArithLUTDecoder(codec, "cuda", spec=spec)
+    tab, it = dec.tables, spec.num_iters // 2
+    rng = np.random.default_rng(3)
+    table = torch.as_tensor(root_levels(spec, it), device="cuda")
+    rows = tab.rows_cn if dec.loop == "qc" else tab.rows_vn
+    m = table[torch.as_tensor(rng.integers(0, len(table), (rows, B)), device="cuda")]
+    leaf = torch.as_tensor(np.asarray(spec.leaf_cha), device="cuda").to(m.dtype)
+    cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (tab.nvar_pad, B)),
+                               device="cuda")]
+    return dec, it, m, cha
+
+
+@pytest.mark.parametrize("B", [512, 301])
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+@pytest.mark.parametrize("which", ["qc", "std"])
+def test_generated_vn_kernels_match_table_driven_and_plain(request, which, dtype, B):
+    """vn_qc_pass / vn_std_pass: the kernels generated for the spec against
+    the table-driven kernel (generic=True) and the plain version; an even
+    batch width (several frames a thread) and an odd one."""
+    codec = request.getfixturevalue("codec" if which == "qc" else "codec_peg")
+    dec, it, m, cha = _vn_case(codec, dtype, B)
+    assert dec.loop == which
+    vn, ref = ((qk.vn_qc_pass, qk.vn_qc_pass_ref) if which == "qc"
+               else (qk.vn_std_pass, qk.vn_std_pass_ref))
+    tab, name = dec.tables, f"vn_{which}_pass"
+    lib = vn_codegen.library(dec.params, dec.dtype, which)
+    assert lib.handle().lut_vn_vec(0, B, 1) == (4 if B % 4 == 0 else 1)
+    n0, g0 = qk.LAUNCHES[name], qk.GENERATED_LAUNCHES[name]
+    got = vn(m, cha, it, dec.params, tab)
+    assert qk.LAUNCHES[name] == n0 + 1
+    per_pass = len(tab.vn_runs) if which == "qc" else len(tab.vn_blocks)
+    assert qk.GENERATED_LAUNCHES[name] == g0 + per_pass
+    for want in (vn(m, cha, it, dec.params, tab, generic=True),
+                 ref(m, cha, it, dec.params, tab)):
+        assert torch.equal(got[0][tab.vn_real], want[0][tab.vn_real])
+        assert torch.equal(got[1][tab.node_real], want[1][tab.node_real])
+        assert torch.equal(got[2], want[2])
+    assert qk.GENERATED_LAUNCHES[name] == g0 + per_pass  # generic=True adds none
+
+
 @pytest.fixture(scope="module")
 def codec_peg():
     """N=500 PEG code, 12 iterations: int16 validates 10, full f32 11."""
@@ -120,8 +165,11 @@ def test_mixed_kernel_path_matches_twin_path(codec_peg):
     lc, lm = codec_peg.quantize_channel(2.0 * y / sig**2)
     lc, lm = torch.as_tensor(lc, device="cuda"), torch.as_tensor(lm, device="cuda")
     dec = MixedArithDecoder(codec_peg, "cuda")
+    qk.reset_launches()
     a = dec(lc, lm)
     assert dec.fin_runs == 1
+    for dt in ("int16", "float32"):  # both segments on the generated kernels
+        assert qk.LAUNCHES_BY_DTYPE["vn_std_pass", dt] >= 1
     b = MixedArithDecoder(codec_peg, "cuda", kernels=False)(lc, lm)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
