@@ -6,15 +6,21 @@ Phases (each prints; any failure raises and exits non-zero):
  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
  2. design the headline, the N=64800 PEG and the two DVB-S2 codecs, and
     meanwhile build every CUDA library side by side, one nvcc each: the
-    table-driven kernels of lut_ldpc_torch/csrc/qc_kernels.cu and one
-    generated VN unit per arithmetic spec (lut_ldpc_torch/decoder/
+    kernel library of lut_ldpc_torch/csrc/qc_kernels.cu (the CN frames of
+    csrc/cn_frames.cuh, the block kernels, the table-driven witnesses) and
+    one generated VN unit per arithmetic spec (lut_ldpc_torch/decoder/
     vn_codegen.py in the frames of csrc/vn_frames.cuh); print the build
-    seconds and what ptxas reports for each kernel;
- 3. the QC kernels against their plain-torch twins on the card at the
-    headline shapes (N=10000 (3,6) QC code, Z=1000, B=8192), in the int16
-    and the float32 spec: values, bits, syndrome and unanimity must be
-    equal; the generated VN kernel also against the table-driven one, at
-    B and at the odd width B - 3, and it must be the faster of the two;
+    seconds and what ptxas reports for each kernel; the CN frames that the
+    QC N=64800 decode would launch (check degrees 8 and 9) must have no
+    stack frame and no spill, as those of every decode below;
+ 3. the QC kernels at the headline shapes (N=10000 (3,6) QC code, Z=1000,
+    B=8192), in the int16 and the float32 spec: the CN frames and the
+    generated VN kernel each against its table-driven witness and its plain
+    version, at B and at the odd width B - 3 (values on real rows, bits,
+    syndrome and unanimity equal; the CN input's padding rows hold random
+    values, the VN input's whatever the CN plain version left there), with
+    their times, ptxas registers of the CN instantiations that ran (no stack,
+    no spill allowed); the VN kernel must be the faster of its two;
  4. the headline decode through make_staged_decoder (a HybridLUTDecoder
     with a 32-iteration int16 prefix) at 2 dB, with launch counts, checked
     against the twin path on the card and the scalar golden model;
@@ -26,9 +32,11 @@ Phases (each prints; any failure raises and exits non-zero):
     workers, started in phase 2 as soon as the labels exist, run one
     golden-model frame each of the PEG and the DVB-S2 code (minutes of host
     time at this size), read at the end;
- 7. the std-layout kernels against their twins at the PEG N=64800 shapes
-    (280277 edges, B=4096 and 4093), int16 and float32 spec, a middle
-    iteration, the VN kernel as in phase 3;
+ 7. the std-layout kernels at the PEG N=64800 shapes (280277 edges, B=4096
+    and 4093), int16 and float32 spec, a middle iteration, as in phase 3;
+    the CN frames read and write the VN-grouped arrays (the row gathers
+    folded in), and the unfolded route (two index_select + the CN frames on
+    the CN-grouped planes) is timed beside them;
  8. the PEG decode through make_staged_decoder at 1.6 dB, B=4096 (a
     MixedArithDecoder: int16 kernels, then float32 kernels for the frames
     still undecided), with launch counts per kernel and dtype, checked
@@ -45,8 +53,9 @@ Phases (each prints; any failure raises and exits non-zero):
 12. a small phantom-completed graph whose phantom node has true degree 2
     (only the block loop decodes it) on the card, against the golden model;
 13. the DVB-S2 standard matrix (Z=360 form, one phantom edge) through
-    make_staged_decoder at 1.6 dB, B=4096: the generated float32 VN kernel
-    at these shapes as in phase 3, class, launches by dtype, peak memory,
+    make_staged_decoder at 1.6 dB, B=4096: the float32 CN frames and
+    generated VN kernel at these shapes as in phase 3, class, launches by
+    dtype, peak memory,
     the first 256 frames against the twin path on the card, and the
     throughput (3 calls after 2 warm-ups);
 14. the same matrix unpermuted (a degree-1 variable, no phantom) on the
@@ -54,11 +63,15 @@ Phases (each prints; any failure raises and exits non-zero):
     permutation: same ok and iters, same bits after un-permuting;
 15. the golden-model frames of the PEG and the DVB-S2 decode from the
     workers.
-Then a JSON line of per-kernel results (time, plain twin's time, the
-card's bound for the same work; `launches` counts the wrapper's calls on the
-main path, one a pass, and for the two generated VN kernels
-`class_launches` the kernel launches these made, one a degree class), the
-card, and last the device line.
+Every main-path decode (phases 4, 8, 13, 14) must have run each CN and VN
+pass on the CN frames or the generated VN kernels, none on a table-driven
+witness.  Then a JSON line of per-kernel results (time, plain twin's time,
+the card's bound for the same work; `launches` counts the wrapper's calls on
+the main path, one a pass, and for the CN frames and the generated VN
+kernels `class_launches` the kernel launches these made, one a degree class
+or run of block-rows; the CN rows also carry `witness_ms`, the table-driven
+kernel's time, and `cn_std_pass` `unfolded_ms`), the card, and last the
+device line.
 """
 
 import json
@@ -66,8 +79,12 @@ import subprocess
 import sys
 import time
 
-SOURCE = "lut_ldpc_torch/csrc/qc_kernels.cu"
+SOURCE = "lut_ldpc_torch/csrc/qc_kernels.cu"  # block kernels, table-driven witnesses
+CN_SOURCE = "lut_ldpc_torch/csrc/cn_frames.cuh"  # built into SOURCE's library
 VN_SOURCE = "lut_ldpc_torch/csrc/vn_frames.cuh"  # frames of the generated units
+SOURCES = {"cn_qc_pass": CN_SOURCE, "cn_std_pass": CN_SOURCE,
+           "vn_qc_pass": VN_SOURCE, "vn_std_pass": VN_SOURCE,
+           "cn_block_pass": SOURCE, "vn_block_pass": SOURCE}
 REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "vn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:873",
             "cn_std_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:1206",
@@ -77,6 +94,7 @@ REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
 
 
 T_START = time.perf_counter()
+BUILD_REPORT = []  # ptxas -v report of the kernel library, set in phase 2
 
 
 def log(msg):
@@ -85,24 +103,14 @@ def log(msg):
 
 
 def ptxas_summary(text):
-    """Per kernel instantiation "name<type, MAXD>: registers, stack bytes,
-    spill bytes" from the build's ptxas -v report."""
-    import re
+    """Per table-driven or block kernel instantiation "name<type, MAXD>:
+    registers, stack bytes, spill bytes" from the build's ptxas -v report."""
+    from lut_ldpc_torch.decoder.nvcc import ptxas_entries
 
-    out, name = [], None
-    for line in text.splitlines():
-        m = re.search(r"((?:cn|vn)_(?:qc|std|block)_kernel)I([sf])Li(\d+)E", line)
-        if m and "Compiling entry function" in line:
-            name = f"{m.group(1)}<{'int16' if m.group(2) == 's' else 'float'}, {m.group(3)}>"
-            stack = spill = "?"
-        elif name and "stack frame" in line:
-            stack = re.search(r"(\d+) bytes stack frame", line).group(1)
-            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-        elif name and "Used" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{name}: {regs} registers, {stack} B stack, {spill} B spill stores")
-            name = None
-    return out
+    return [f"{k}<{'int16' if t == 's' else 'float'}, {w}>: {r['registers']} registers, "
+            f"{r['stack']} B stack, {r['spill_stores']} B spill stores"
+            for r in ptxas_entries(text, r"((?:cn|vn)_(?:qc|std|block)_kernel)I([sf])Li(\d+)E")
+            for k, t, w in [r["groups"]]]
 
 
 def straddled(op, d):
@@ -137,12 +145,12 @@ def bounds(dec, B):
     bits written) over the memory rate and float32 operations over the
     float32 rate (the data-sheet rates of lut_ldpc_torch.profile_kernels).
     Returns {"cn": (ms, by), "vn": (ms, by)}."""
-    from lut_ldpc_torch import profile_kernels as pk
+    from lut_ldpc_torch import profile_cn as pc, profile_kernels as pk
 
     lay = dec.layout
     size = dec.dtype.itemsize
     E, nvar = lay.num_edges, lay.nvar
-    return {"cn": pk.bound_ms(2 * E * B * size + B, pk.CN_OPS_PER_EDGE * E * B),
+    return {"cn": pc.cn_bound(dec, B),
             "vn": pk.bound_ms((2 * E + nvar) * B * size + nvar * B + B,
                               vn_ops_per_frame(dec.params, lay.vn_blocks) * B)}
 
@@ -196,49 +204,61 @@ def vn_check(dec, it, m_c2v, cha, what, reps, plain_reps):
     return full
 
 
+def cn_check(dec, it, B, what, reps, plain_reps, seed=1):
+    """The CN frames of `dec` on iteration `it`'s values (random table
+    entries in every VN-grouped row, padding rows included, every 16th frame
+    positive) and on the same input cut to an odd width (3 frames fewer: one
+    frame a thread, unaligned rows): equal to the table-driven kernel and the
+    plain version (lut_ldpc_torch.profile_cn.check_cn raises otherwise); the
+    instantiations that run at full width must have no stack frame and no
+    spill.  Logs one line per width; returns (the full-width result, the
+    plain version's output there: the VN kernel's input)."""
+    from lut_ldpc_torch import profile_cn as pc
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    m_vn = pc.cn_input(dec, it, B, seed)
+    rows = {(r["kernel"], r["dtype"], r["width"], r["vec"]): r
+            for r in qk.ptxas_cn_frames(BUILD_REPORT[0])}
+    for key in pc.instantiations(dec, B):
+        r = rows[key]
+        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{what}: {key} has {r['stack']} B stack, "
+                                 f"{r['spill_stores'] + r['spill_loads']} B spills")
+    bnd = bounds(dec, B)["cn"]
+    full = None
+    for width in (B, B - 3):
+        x = m_vn if width == B else m_vn[:, :width].contiguous()
+        r = pc.check_cn(dec, x, reps=reps if width == B else max(2, reps // 4),
+                        plain_reps=plain_reps if width == B else 0)
+        log(f"# {what} B={width}: {r['name']} frames equal to the table-driven kernel and "
+            f"the plain version; frames {r['ms']:.4f} ms, table-driven {r['witness_ms']:.4f} ms"
+            + (f", unfolded route (two gathers + frames) {r['unfolded_ms']:.4f} ms"
+               if r["unfolded_ms"] else "")
+            + (f", plain {r['plain_ms']:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+               + "; ".join(pc.describe_instantiations(dec, B, BUILD_REPORT[0]))
+               if width == B else "") + f"; synd true {r['synd_true']}/{width}")
+        full = full or r
+    cn_ref = qk.cn_qc_pass_ref if dec.loop == "qc" else qk.cn_std_pass_ref
+    return full, cn_ref(m_vn, dec.tables)[0]
+
+
 def kernel_vs_twin(dec, it, seed, B, what):
-    """CN then VN kernel of `dec`'s path (QC or std) against its twin on one
-    (rows, B) input; returns {kernel name: (max_abs_err, kernel ms, twin ms)}."""
+    """CN then VN kernel of `dec`'s path (QC or std) against the table-driven
+    kernel and the plain version; the VN kernel reads the CN plain version's
+    output (CN-grouped on the QC path, VN-grouped on the std path, padding
+    rows as that left them).  Returns {kernel name: result dict}."""
     import numpy as np
     import torch
 
-    from lut_ldpc_torch.decoder import qc_kernels as qk
-    from lut_ldpc_torch.decoder.hybrid import root_levels
-    from lut_ldpc_torch.profile_kernels import cuda_ms
-
-    tab, spec = dec.tables, dec.spec
-    dev = dec.device
-    qc = dec.plan is not None
-    cn, cn_ref = (qk.cn_qc_pass, qk.cn_qc_pass_ref) if qc else (qk.cn_std_pass, qk.cn_std_pass_ref)
-    cn_name = "cn_qc_pass" if qc else "cn_std_pass"
-    rng = np.random.default_rng(seed)
-    table = torch.as_tensor(root_levels(spec, it), device=dev).to(dec.dtype)
-
-    def values(rows):
-        return table[torch.as_tensor(rng.integers(0, len(table), (rows, B)), device=dev)]
-
-    # the QC CN kernel reads the VN-grouped array, the std one the CN-grouped
-    m_in = values(tab.rows_vn if qc else tab.rows_cn)
-    cha_t = torch.as_tensor(np.asarray(spec.leaf_cha), device=dev).to(dec.dtype)
-    cha = cha_t[torch.as_tensor(rng.integers(0, len(cha_t), (tab.nvar_pad, B)), device=dev)]
-
-    out = {}
-    m_cn_k, synd_k = cn(m_in, tab)
-    m_cn_t, synd_t = cn_ref(m_in, tab)
-    torch.cuda.synchronize()
-    e = float((m_cn_k[tab.cn_real].double() - m_cn_t[tab.cn_real].double()).abs().max())
-    if e != 0 or not torch.equal(synd_k, synd_t):
-        raise AssertionError(f"{cn_name} disagrees with its twin (max err {e})")
-    out[cn_name] = (e, cuda_ms(lambda: cn(m_in, tab), 20),
-                    cuda_ms(lambda: cn_ref(m_in, tab), 3))
-    del m_cn_k
-    # the QC VN kernel reads the CN-grouped array, the std one the VN-grouped
-    m_c2v = m_cn_t if qc else values(tab.rows_vn)
-    del m_in, m_cn_t
+    qc = dec.loop == "qc"
+    r_cn, m_c2v = cn_check(dec, it, B, what, 20 if qc else 10, 3 if qc else 1, seed)
+    rng = np.random.default_rng(seed + 1)
+    cha_t = torch.as_tensor(np.asarray(dec.spec.leaf_cha), device=dec.device).to(dec.dtype)
+    cha = cha_t[torch.as_tensor(rng.integers(0, len(cha_t), (dec.tables.nvar_pad, B)),
+                                device=dec.device)]
     r = vn_check(dec, it, m_c2v, cha, what, 20 if qc else 5, 3 if qc else 1)
-    out[r["name"]] = (r["max_abs_err"], r["ms"], r["plain_ms"])
-    log(f"#   synd true {int(synd_k.sum())}/{B}, unan true {r['unan_true']}/{B}")
-    return out
+    log(f"#   unan true {r['unan_true']}/{B}")
+    return {r_cn["name"]: r_cn, r["name"]: r}
 
 
 def kernels_both_specs(codec, dev, B, phase, results):
@@ -263,15 +283,18 @@ def kernels_both_specs(codec, dev, B, phase, results):
                             for (d, n), c in zip(evals.items(), dec.params.classes))
                 + f"; {vn_ops_per_frame(dec.params, dec.layout.vn_blocks)} float32 "
                 f"operations a frame")
-        for name, (e, ms, plain) in res.items():
+        for name, r in res.items():
             b_ms, b_by = bnd[name[:2]]
-            log(f"# phase {phase}: {name} {np.dtype(dt).name} it={it}: equal to twin; "
-                f"kernel {ms:.4f} ms, twin {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
             if dt == np.int16:
-                results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                results[name] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                     plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=None)
+                results[name]["witness_ms"] = r.get("witness_ms", r.get("generic_ms"))
+                if r.get("unfolded_ms"):
+                    results[name]["unfolded_ms"] = r["unfolded_ms"]
             else:
-                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                                   r["max_abs_err"])
         del dec
 
 
@@ -315,28 +338,56 @@ def finish_builds(thread, built, libs):
 
     thread.join()
     if not built:
-        raise RuntimeError("the build of the table-driven kernels failed")
+        raise RuntimeError("the build of the kernel library failed")
     _, secs, report = built[0]
-    log(f"# phase 2: built {qk.KERNEL_SOURCE} in {secs:.1f}s")
+    BUILD_REPORT.append(report)
+    log(f"# phase 2: built {qk.KERNEL_SOURCE} (with {qk.CN_SOURCE}) in {secs:.1f}s; "
+        f"{len(qk.ptxas_cn_frames(report))} CN frame instantiations")
     for line in ptxas_summary(report):
         log(f"#   ptxas {line}")
+    qc_n64800_gate(report)
     for label, lib, classes in libs.values():
         lib.handle()
         for line in pv.describe_build(lib, classes):
             log(f"# phase 2: generated VN kernels, {label}: {line}")
 
 
-def generated_only(name, per_pass):
-    """After a main-path decode: every VN pass went through the generated
-    kernels (per_pass class launches each), none through the table-driven
-    one.  Returns the class launches."""
+def qc_n64800_gate(report):
+    """Phase 2: the CN frames that the QC N=64800 decode (``bench_n64800
+    --code qc``, which no phase runs) launches, at its check degrees in
+    int16 and float32 at B=4096, must have no stack frame and no spill."""
+    from lut_ldpc_torch import bench_n64800 as b64
+    from lut_ldpc_torch.core import qc
     from lut_ldpc_torch.decoder import qc_kernels as qk
 
-    got, want = qk.GENERATED_LAUNCHES[name], qk.LAUNCHES[name] * per_pass
+    rows = {(r["kernel"], r["dtype"], r["width"], r["vec"]): r
+            for r in qk.ptxas_cn_frames(report)}
+    lib = qk._load()
+    degrees = sorted({int(d) for d in (qc.load_qc(b64.QC_JSON).base >= 0).sum(axis=1)})
+    for dt, is_f32 in (("int16", 0), ("float32", 1)):
+        for d in degrees:
+            key = ("cn_qc_frames_kernel", dt, lib.lut_cn_width(d),
+                   lib.lut_cn_vec(is_f32, d, b64.BATCH, 1))
+            r = rows[key]
+            if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+                raise AssertionError(f"QC N=64800: {key} has {r['stack']} B stack, "
+                                     f"{r['spill_stores'] + r['spill_loads']} B spills")
+            log(f"# phase 2: QC N=64800 check degree {d}: {key[0]}<{dt}, width {key[2]}, "
+                f"{key[3]} frames a thread>: {r['registers']} registers, no stack, "
+                f"no spill")
+
+
+def frames_only(name, per_pass):
+    """After a main-path decode: every pass of `name` went through the CN
+    frames or the generated VN kernels (per_pass class launches each), none
+    through the table-driven witness.  Returns the class launches."""
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    got, want = qk.CLASS_LAUNCHES[name], qk.LAUNCHES[name] * per_pass
     if got != want or want < 1:
-        raise AssertionError(f"{name}: {got} generated class launches in "
+        raise AssertionError(f"{name}: {got} class launches in "
                              f"{qk.LAUNCHES[name]} passes, expected {want}")
-    log(f"#   {name}: {qk.LAUNCHES[name]} passes, all on the generated kernels "
+    log(f"#   {name}: {qk.LAUNCHES[name]} passes, none on the table-driven kernel "
         f"({got} class launches)")
     return got
 
@@ -393,8 +444,9 @@ def headline(dev, smi, codec, results, launches):
         launches[name] = qk.LAUNCHES[name]
         if launches[name] < 1:
             raise AssertionError(f"headline path skipped {name}")
-    results["vn_qc_pass"]["class_launches"] = generated_only(
-        "vn_qc_pass", len(dec.pre.tables.vn_runs))
+    tab = dec.pre.tables
+    results["cn_qc_pass"]["class_launches"] = frames_only("cn_qc_pass", len(tab.cn_runs))
+    results["vn_qc_pass"]["class_launches"] = frames_only("vn_qc_pass", len(tab.vn_runs))
     check_shapes(out, B, codec.nvar)
     _, ok, iters = out
     log(f"# phase 4: {type(dec).__name__} S={dec.S}: launches {dict(qk.LAUNCHES)}, "
@@ -440,7 +492,7 @@ def headline(dev, smi, codec, results, launches):
     if busy == 0.0:
         raise AssertionError("the profiler recorded no device time")
     kern = sum(ms for name, _, ms in rows
-               if "_qc_kernel" in name or "_qc_class_kernel" in name)
+               if "_qc_frames_kernel" in name or "_qc_class_kernel" in name)
     log(f"#   traced decode: wall {wall:.3f} ms, device span {span:.3f} ms, busy "
         f"{busy:.3f} ms (CN+VN kernels {kern:.3f}, torch glue {busy - kern:.3f}), "
         f"idle {100 * (1 - busy / span):.1f} % of the span")
@@ -480,8 +532,9 @@ def peg(dev, smi, codec, lc, lm, rank, results, launches):
         for dt in ("int16", "float32"):
             if qk.LAUNCHES_BY_DTYPE[name, dt] < 1:
                 raise AssertionError(f"PEG path launched no {name} in {dt}: {by_dtype}")
-    results["vn_std_pass"]["class_launches"] = generated_only(
-        "vn_std_pass", len(inner.pre.tables.vn_blocks))
+    tab = inner.pre.tables
+    results["cn_std_pass"]["class_launches"] = frames_only("cn_std_pass", len(tab.cn_blocks))
+    results["vn_std_pass"]["class_launches"] = frames_only("vn_std_pass", len(tab.vn_blocks))
     check_shapes(out, B, codec.nvar)
     _, ok, iters = out
     past = int((iters > inner.S16).sum())
@@ -635,8 +688,10 @@ def dvbs2(dev, smi, codec, codec_g, lc, lm):
     from lut_ldpc_torch import profile_vn as pv
 
     it = dec.S // 2
+    what = f"phase 13: DVB-S2 float32 it={it}"
+    cn_check(dec, it, B, what, 10, 1)
     m_c2v, cha = pv.vn_input(dec, it, B)
-    r = vn_check(dec, it, m_c2v, cha, f"phase 13: DVB-S2 float32 it={it}", 5, 1)
+    r = vn_check(dec, it, m_c2v, cha, what, 5, 1)
     log(f"#   unan true {r['unan_true']}/{B}")
     del m_c2v, cha
     torch.cuda.empty_cache()
@@ -649,7 +704,8 @@ def dvbs2(dev, smi, codec, codec_g, lc, lm):
     for name in ("cn_qc_pass", "vn_qc_pass"):
         if qk.LAUNCHES_BY_DTYPE[name, "float32"] < 1:
             raise AssertionError(f"DVB-S2 path launched no {name} in float32: {by_dtype}")
-    generated_only("vn_qc_pass", len(dec.tables.vn_runs))
+    frames_only("cn_qc_pass", len(dec.tables.cn_runs))
+    frames_only("vn_qc_pass", len(dec.tables.vn_runs))
     check_shapes(out, B, codec.nvar)
     bits, ok, iters = out
     bnd = bounds(dec, B)
@@ -681,8 +737,8 @@ def dvbs2(dev, smi, codec, codec_g, lc, lm):
     qk.reset_launches()
     out_g = dec_g(lc_d[:n][:, perm].contiguous(), lm_d[:n][:, perm].contiguous())
     torch.cuda.synchronize()
-    if qk.LAUNCHES["cn_std_pass"] < 1 or qk.LAUNCHES["vn_std_pass"] < 1:
-        raise AssertionError("the unpermuted decode launched no std kernel")
+    frames_only("cn_std_pass", len(dec_g.tables.cn_blocks))
+    frames_only("vn_std_pass", len(dec_g.tables.vn_blocks))
     same((bits[:n][:, perm], ok[:n], iters[:n]), out_g, "DVB-S2 permuted vs unpermuted")
     log(f"# phase 14: unpermuted matrix on the std kernels ({time.perf_counter() - t0:.1f}s "
         f"with the decoder's build), {n} frames: launches {dict(qk.LAUNCHES)}; ok and iters "
@@ -779,9 +835,8 @@ def main():
         check_worker_golden("DVB-S2", golden_dvb, dvb_frame0, codec.max_iters)
 
     print(json.dumps({"kernels": [
-        dict(name=n, route="cuda",
-             source=VN_SOURCE if n in ("vn_qc_pass", "vn_std_pass") else SOURCE,
-             replaces=REPLACES[n], launches=launches[n], **results[n])
+        dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
+             launches=launches[n], **results[n])
         for n in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

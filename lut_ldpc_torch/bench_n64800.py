@@ -5,7 +5,7 @@ dv{2,3,9,17}/dc{8,9} ensemble:
 
 - ``--code peg``: the unstructured PEG code
   (codes/rate0.50_dv02-17_dc08-09_lut_q4_N64800.alist): the std-layout
-  kernels, the permutation a row gather;
+  kernels, the permutation inside the CN kernel's loads and stores;
 - ``--code qc``: the girth-8 irregular quasi-cyclic code
   (codes/rate0.50_dv02-17_dc08-09_N64800_qc.qc.json): the QC kernels;
 
@@ -16,7 +16,7 @@ and the ETSI DVB-S2 rate-1/2 standard matrix
   completion edge (core/dvbs2.py): the QC kernels, with the phantom rows
   repaired around them;
 - ``--code dvbs2-gather``: the same matrix as the alist has it (a degree-1
-  variable, no phantom): the std-layout kernels and row gathers.
+  variable, no phantom): the std-layout kernels.
 
 A 4-bit min-LUT codec designed at sigma = --thr with --iters iterations,
 --batch frames of the all-zero codeword at Eb/N0 = --snr dB, noise from

@@ -19,6 +19,10 @@
 //     chain with a tie at a zero sum.  Bound: bytes, as the others; the full
 //     evaluation costs d times the tree per node, which a block of low
 //     degree hides behind its loads and a block of high degree does not.
+// The decoders' CN passes run in the frames of cn_frames.cuh (included at the
+// end, built into the same library); cn_qc_kernel and cn_std_kernel here are
+// their table-driven witness, as vn_qc_kernel and vn_std_kernel are for the
+// generated VN kernels of vn_frames.cuh.
 // What the Pallas kernels compute (_vn_class_compute, the two-min CN) is
 // kept; the TPU schedule (halo planes, 8-row realign, per-class tile
 // lengths, double-buffered window DMAs, SMEM step tables) is not.  Messages
@@ -629,3 +633,5 @@ int lut_vn_block_pass(int is_f32, const void* m_in, const void* cha,
 }
 
 }  // extern "C"
+
+#include "cn_frames.cuh"

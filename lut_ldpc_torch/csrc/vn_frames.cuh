@@ -44,7 +44,9 @@
 // aligned arrays; otherwise the one-frame instantiation runs.
 //
 // Arithmetic is float32 for both storage types; build with --fmad=false and
-// without fast-math.  C entry points return cudaGetLastError() of the launch.
+// without fast-math.  C entry points return cudaGetLastError() of the launch,
+// or kNothingToLaunch where the launch would have no block: the caller counts
+// a launch only where it saw 0.
 
 #pragma once
 
@@ -65,6 +67,7 @@ namespace lutvn {
 constexpr int kThreads = 256;
 constexpr int kVecLow = 4;   // frames a thread, degree <= 4
 constexpr int kVecHigh = 1;  // frames a thread above
+constexpr int kNothingToLaunch = -1;  // no node or no frame: nothing launched
 
 constexpr int vec_width(int d) { return d <= 4 ? kVecLow : kVecHigh; }
 
@@ -230,7 +233,7 @@ int resident_blocks(K kernel) {
 template <typename K>
 int launch(K kernel, int* resident, long long items, void** args,
            void* stream) {
-  if (items <= 0) return 0;
+  if (items <= 0) return kNothingToLaunch;
   if (*resident == 0) *resident = resident_blocks(kernel);
   if (*resident <= 0 || items >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);

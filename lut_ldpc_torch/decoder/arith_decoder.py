@@ -9,13 +9,16 @@ from one of three places:
   the kernel;
 - ``std``, the ``_build_std_kernels`` loop (:863-1090, every other graph:
   PEG codes, the unpermuted DVB-S2 matrix): ``cn_std_pass`` /
-  ``vn_std_pass`` work on contiguous slot planes and the permutation is a
-  row gather here, before each pass;
+  ``vn_std_pass`` work on contiguous slot planes; the CN pass reads and
+  writes the VN-grouped arrays, so the two row gathers of the JAX loop
+  (``jnp.take`` before and after its CN kernel) are inside its loads and
+  stores and every array of the loop is VN-grouped;
 - ``blocks``, the plain ``_build`` loop (:621-823): the same row gathers,
   then one ``cn_block_pass`` per check degree block and one
   ``vn_block_pass`` per variable degree block (``block_kernels``).  It is
   taken where neither kernel loop applies (a phantom node whose true degree
-  is not 1) or when the constructor is given ``loop="blocks"``.
+  is not 1) or when the constructor is given ``loop="blocks"``.  Its row
+  gathers are torch ``index_select``s.
 
 Around the passes, shared by the three:
 
@@ -251,15 +254,16 @@ class ArithLUTDecoder:
 
     # ------------------------------------------------------------------
     def _cn(self, m_vn):
-        """VN-grouped v2c values -> (CN-grouped c2v values, syndrome).
-        Phantom rows of m_vn are pinned by ``_init`` and ``_vn``."""
+        """VN-grouped v2c values -> (c2v values, syndrome): CN-grouped on
+        the QC and the block loop, VN-grouped on the std loop.  Phantom rows
+        of m_vn are pinned by ``_init`` and ``_vn``."""
         if self.loop == "qc":
             fn = qk.cn_qc_pass if self.kernels else qk.cn_qc_pass_ref
             return fn(m_vn, self.tables)
-        m_cn = m_vn.index_select(0, self.tables.perm_v2c)
         if self.loop == "std":
             fn = qk.cn_std_pass if self.kernels else qk.cn_std_pass_ref
-            return fn(m_cn, self.tables)
+            return fn(m_vn, self.tables)
+        m_cn = m_vn.index_select(0, self.tables.perm_v2c)
         fn = bk.cn_block_pass if self.kernels else bk.cn_block_pass_ref
         B = m_cn.shape[1]
         outs, synd = [], None
@@ -271,23 +275,23 @@ class ArithLUTDecoder:
         return torch.cat(outs, dim=0), synd
 
     def _vn(self, m_cn, vcha, it):
-        """CN-grouped c2v values -> (VN-grouped v2c values, bits, unan),
-        phantom nodes repaired and their phantom rows pinned."""
+        """c2v values as ``_cn`` gives them -> (VN-grouped v2c values, bits,
+        unan), phantom nodes repaired and their phantom rows pinned."""
         if self.loop == "qc":
             for p in self._ph:  # m_cn is this step's own array
                 m_cn[p["cn_rows_ph"]] = m_cn[p["cn_rows_real"][0]].clone()
             fn = qk.vn_qc_pass if self.kernels else qk.vn_qc_pass_ref
             m_new = None
             m_vn, bits, unan = fn(m_cn, vcha, it, self.params, self.tables)
+        elif self.loop == "std":
+            m_new = m_cn  # VN-grouped already; this step's own array
+            for p in self._ph:
+                m_new[p["rows_ph"]] = m_new[p["rows_real"][0]].clone()
+            fn = qk.vn_std_pass if self.kernels else qk.vn_std_pass_ref
+            m_vn, bits, unan = fn(m_new, vcha, it, self.params, self.tables)
         else:
             m_new = m_cn.index_select(0, self.tables.perm_c2v)
-            if self.loop == "std":
-                for p in self._ph:
-                    m_new[p["rows_ph"]] = m_new[p["rows_real"][0]].clone()
-                fn = qk.vn_std_pass if self.kernels else qk.vn_std_pass_ref
-                m_vn, bits, unan = fn(m_new, vcha, it, self.params, self.tables)
-            else:
-                m_vn, bits, unan = self._vn_blocks(m_new, vcha, it)
+            m_vn, bits, unan = self._vn_blocks(m_new, vcha, it)
         if not self._ph:
             return m_vn, bits, unan
         with torch.profiler.record_function("lut::phantom_rows"):
@@ -490,11 +494,12 @@ class ArithLUTDecoder:
         return vals[-1]
 
     def _decision(self, m_cn, vcha):
-        """Decision trees on the final c2v values (arith_decoder.py:1414-1436):
-        (nvar_pad, B) int8 hard bits; phantom nodes by the tree of their
-        true degree over their real sockets (:207)."""
+        """Decision trees on the final c2v values as ``_cn`` gives them
+        (arith_decoder.py:1414-1436): (nvar_pad, B) int8 hard bits; phantom
+        nodes by the tree of their true degree over their real sockets
+        (:207).  Padding nodes get bits of whatever their rows hold."""
         B = m_cn.shape[1]
-        m_fin = m_cn[self.ten.perm_c2v]
+        m_fin = m_cn if self.loop == "std" else m_cn[self.ten.perm_c2v]
         out = []
         for bi, blk in enumerate(self.layout.vn_blocks):
             d, n, e0 = blk.degree, blk.n_pad, blk.edge_start

@@ -14,8 +14,9 @@ Everything here is built once per decoder from the numpy objects
   base and the same per slot), and the gather indices of the plain twins;
 - ``std_tables``: the same two passes for a graph without circulant
   structure (per degree class: node start, padded and real node counts,
-  degree and edge start of its slot planes) and the two row-gather
-  permutations between the VN- and CN-grouped orders;
+  degree and edge start of its slot planes), the two row-gather
+  permutations between the VN- and CN-grouped orders and the VN-grouped row
+  of every CN-grouped edge row, through which the CN kernels fold both;
 - ``arith_tensors``: the leaf value tables and the layout index maps;
 - ``fast_tables``: the label-domain table-decoder tables
   (fast_decoder.py:135-243).
@@ -208,6 +209,7 @@ class QCTables:
     vn_node: torch.Tensor
     vn_cls: torch.Tensor
     vn_runs: tuple   # (first row, end row, class) runs of vn_cls
+    cn_runs: tuple   # (first row, end row, check degree) runs of cn_deg
     # plain-twin gathers, one entry per run of rows of one class:
     # cn_plain: (src (d, n) int64, dst (d, n) int64)
     # vn_plain: (class idx, src (d, n), dst (d, n), node (n,))
@@ -288,7 +290,9 @@ def qc_tables(plan, lay, device) -> QCTables:
         cn_dst=_i32(cn_dst, device), cn_deg=_i32(cn_deg, device),
         vn_src=_i32(vn_src, device), vn_shift=_i32(vn_shift, device),
         vn_dst=_i32(vn_dst, device), vn_node=_i32(vn_node, device),
-        vn_cls=_i32(vn_cls, device), vn_runs=vn_runs, cn_plain=cn_plain,
+        vn_cls=_i32(vn_cls, device), vn_runs=vn_runs,
+        cn_runs=tuple((lo, hi, int(d)) for lo, hi, d in _runs(list(cn_deg))),
+        cn_plain=cn_plain,
         vn_plain=vn_plain,
         cn_real=_i64(_real_rows(lay.cn_blocks), device),
         vn_real=_i64(_real_rows(lay.vn_blocks), device),
@@ -322,6 +326,11 @@ class StdTables:
     # padding rows point at row 0
     perm_v2c: torch.Tensor  # (rows_cn,) int32
     perm_c2v: torch.Tensor  # (rows_vn,) int32
+    # the inverse of perm_c2v on the real rows: CN-grouped row -> the
+    # VN-grouped row of the same edge (equal to perm_v2c there), -1 at
+    # padding rows; the CN kernels read and write the VN-grouped arrays
+    # through it
+    inv_c2v: torch.Tensor   # (rows_cn,) int32
     # real (non-padding) rows, for comparisons
     cn_real: torch.Tensor
     vn_real: torch.Tensor
@@ -346,6 +355,9 @@ def std_tables(lay, device) -> StdTables:
         return _i32([[b.node_start, b.n_pad, b.num_nodes, b.degree,
                       b.edge_start] for b in blocks], device).reshape(-1)
 
+    vn_real = _real_rows(lay.vn_blocks)
+    inv_c2v = np.full(lay.num_edges_cn, -1, np.int64)
+    inv_c2v[np.asarray(lay.perm_c2v)[vn_real]] = vn_real
     return StdTables(
         rows_cn=lay.num_edges_cn, rows_vn=lay.num_edges_vn,
         nvar_pad=lay.nvar_pad, nchk_pad=lay.nchk_pad,
@@ -354,8 +366,9 @@ def std_tables(lay, device) -> StdTables:
         cn_cls=cls(lay.cn_blocks), vn_cls=cls(lay.vn_blocks),
         cn_blocks=tuple(lay.cn_blocks), vn_blocks=tuple(lay.vn_blocks),
         perm_v2c=_i32(lay.perm_v2c, device), perm_c2v=_i32(lay.perm_c2v, device),
+        inv_c2v=_i32(inv_c2v, device),
         cn_real=_i64(_real_rows(lay.cn_blocks), device),
-        vn_real=_i64(_real_rows(lay.vn_blocks), device),
+        vn_real=_i64(vn_real, device),
         node_real=_i64(_real_nodes(lay.vn_blocks), device))
 
 

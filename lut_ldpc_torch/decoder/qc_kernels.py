@@ -2,31 +2,39 @@
 
 ``cn_qc_pass`` / ``vn_qc_pass`` (quasi-cyclic graphs) and ``cn_std_pass`` /
 ``vn_std_pass`` (graphs without circulant structure) take CUDA tensors to
-the hand-written Hopper kernels of ``lut_ldpc_torch/csrc/qc_kernels.cu``
-and CPU tensors to their plain-torch twins ``*_ref``, which sit beside them
-and compute the same values.  A CUDA tensor never falls back to a twin:
-the kernel launches or the wrapper raises.  The same library holds the
-per-degree-block pair whose wrappers are in ``block_kernels``.
+hand-written Hopper kernels and CPU tensors to their plain-torch twins
+``*_ref``, which sit beside them and compute the same values.  A CUDA tensor
+never falls back to a twin: the kernel launches or the wrapper raises.
 
 They replace lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass (:549),
 ::vn_qc_pass (:873), ::cn_std_pass (:1206) and ::vn_std_pass (:1353),
 computing what those compute on the standard slot-major grouped layout (no
 halo planes, no tile schedule): messages (rows, B), frame axis contiguous.
 On a QC graph every circulant shift is a modular row index in the load; on
-a std graph each degree class is a run of contiguous slot planes and the
-permutation between the two groupings is a row gather done by the caller.
+a std graph each degree class is a run of contiguous slot planes.  The std
+CN pass reads the VN-grouped v2c array and writes the VN-grouped c2v array:
+the two row gathers between the groupings (``jnp.take`` around the JAX
+kernel) live inside its loads and stores, so the std VN pass takes its
+output as it is.
 
-The VN passes launch kernels generated for the decoder's arithmetic spec
-(``vn_codegen``: the class trees as straight-line code in the frames of
-``csrc/vn_frames.cuh``, one launch per degree class); the table-driven
-``vn_qc_kernel`` / ``vn_std_kernel`` of ``qc_kernels.cu``, one binary for
-every codec, run only when a caller passes ``generic=True`` (a second
-witness and the time to compare with).
+The CN passes launch the frames of ``csrc/cn_frames.cuh`` (one instantiation
+per check degree, several frames a thread, one check a block; one launch per
+run of block-rows of one degree or per degree class).  The VN passes launch
+kernels generated for the decoder's arithmetic spec (``vn_codegen``: the
+class trees as straight-line code in the frames of ``csrc/vn_frames.cuh``,
+one launch per degree class).  The table-driven ``cn_*_kernel`` /
+``vn_*_kernel`` of ``csrc/qc_kernels.cu``, one binary for every codec, run
+only when a caller passes ``generic=True`` (a second witness and the time
+to compare with); the std CN witness gathers in torch around its kernel.
 
-The CUDA source is compiled with nvcc at first use into
-``build/torch_kernels/`` (a shared library with a plain C interface,
-loaded with ctypes) and launched on the current stream.  Each wrapper
-counts its kernel launches in ``LAUNCHES``.
+``qc_kernels.cu`` (which includes the CN frames) is compiled with nvcc at
+first use into ``build/torch_kernels/`` (a shared library with a plain C
+interface, loaded with ctypes; it also holds the per-degree-block pair whose
+wrappers are in ``block_kernels``) and launched on the current stream.
+``LAUNCHES`` counts each wrapper's calls that launched a kernel (passes);
+``CLASS_LAUNCHES`` the launches of the per-degree kernels these made, one
+for each call of a per-degree entry point that returned 0 (an entry point
+with nothing to launch returns ``NOTHING_TO_LAUNCH``, which counts none).
 """
 
 from __future__ import annotations
@@ -40,35 +48,39 @@ import time
 import torch
 
 from . import vn_codegen
-from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path
+from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path, ptxas_entries
 from .params import QCTables, StdTables, VNParams
 
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
-           "build_kernels", "LAUNCHES", "LAUNCHES_BY_DTYPE",
-           "GENERATED_LAUNCHES", "reset_launches",
-           "KERNEL_SOURCE"]
+           "build_kernels", "ptxas_cn_frames", "LAUNCHES", "LAUNCHES_BY_DTYPE",
+           "CLASS_LAUNCHES", "NOTHING_TO_LAUNCH", "reset_launches",
+           "KERNEL_SOURCE", "CN_SOURCE"]
 
 KERNEL_SOURCE = os.path.join(CSRC_DIR, "qc_kernels.cu")
+CN_SOURCE = os.path.join(CSRC_DIR, "cn_frames.cuh")  # included by KERNEL_SOURCE
+_SOURCES = (KERNEL_SOURCE, CN_SOURCE, os.path.join(CSRC_DIR, "cn_frame.h"))
 _LIB_PATH = os.path.join(BUILD_DIR, "libqc_kernels.so")
 MAX_DEGREE = 32  # widest row table the kernels are instantiated for
 MAX_TREE_OPS = 32  # ops of one VN tree (kMaxOps in the source)
+NOTHING_TO_LAUNCH = -1  # kNothingToLaunch of the CN and VN frames
 
 # kernel launches per wrapper, and the same split by message dtype
 LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
             "vn_std_pass": 0, "cn_block_pass": 0, "vn_block_pass": 0}
 LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
                      for dt in ("int16", "float32")}
-# launches of generated class kernels (several a VN pass); a pass through the
-# table-driven kernel adds nothing here
-GENERATED_LAUNCHES = {"vn_qc_pass": 0, "vn_std_pass": 0}
+# launches of the per-degree kernels (CN frames, generated VN kernels;
+# several a pass); a pass through a table-driven kernel adds nothing here
+CLASS_LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
+                  "vn_std_pass": 0}
 
 _lock = threading.Lock()
 _lib = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, GENERATED_LAUNCHES):
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -79,10 +91,10 @@ def _launched(name: str, dtype: torch.dtype) -> None:
 
 
 def build_kernels(force: bool = False) -> tuple:
-    """Compile the kernel library if missing or older than its source;
+    """Compile the kernel library if missing or older than its sources;
     returns (library path, seconds spent compiling, ptxas -v report)."""
-    if (not force and os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(KERNEL_SOURCE)):
+    if (not force and os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH)
+            >= max(os.path.getmtime(f) for f in _SOURCES)):
         return _LIB_PATH, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
@@ -93,6 +105,19 @@ def build_kernels(force: bool = False) -> tuple:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, _LIB_PATH)
     return _LIB_PATH, time.perf_counter() - t0, proc.stderr
+
+
+def ptxas_cn_frames(report: str) -> list:
+    """Per CN frame instantiation of the library's ptxas -v report:
+    dict(kernel, dtype, width (the check degree, or a bucket above
+    lutcn::kExact), vec (frames a thread), registers, stack, spill_stores,
+    spill_loads)."""
+    out = []
+    for r in ptxas_entries(report, r"(cn_(?:qc|std)_frames_kernel)I([sf])Li(\d+)ELi(\d+)E"):
+        kernel, t, w, v = r.pop("groups")
+        out.append(dict(kernel=kernel, dtype="int16" if t == "s" else "float32",
+                        width=int(w), vec=int(v), **r))
+    return out
 
 
 def _load():
@@ -116,6 +141,15 @@ def _load():
             lib.lut_cn_block_pass.restype = i
             lib.lut_vn_block_pass.argtypes = [i] + [p] * 9 + [i] * 8 + [p]
             lib.lut_vn_block_pass.restype = i
+            # the CN frames (csrc/cn_frames.cuh)
+            lib.lut_cn_width.argtypes = [i]
+            lib.lut_cn_width.restype = i
+            lib.lut_cn_vec.argtypes = [i, i, i, i]
+            lib.lut_cn_vec.restype = i
+            lib.lut_cn_qc_frames.argtypes = [i] + [p] * 6 + [i] * 7 + [p]
+            lib.lut_cn_qc_frames.restype = i
+            lib.lut_cn_std_frames.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
+            lib.lut_cn_std_frames.restype = i
             _lib = lib
         return _lib
 
@@ -151,6 +185,16 @@ def _stream(device) -> int:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _class_launched(err: int, name: str) -> None:
+    """After a call of a per-degree entry point (CN or VN frames): raise on a
+    CUDA error; count one class launch of `name` where the kernel was
+    launched, none where there was nothing to launch."""
+    if err == NOTHING_TO_LAUNCH:
+        return
+    _raise_on(err, name)
+    CLASS_LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +233,12 @@ def cn_qc_pass_ref(m_vn: torch.Tensor, tables: QCTables):
     return m_cn, synd
 
 
-def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables):
+def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
     """CN pass: v2c circulant rolls, min-LUT two-min and sign-parity update,
-    per-frame syndrome of the input signs.  CUDA tensors launch the kernel
-    (replaces lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass); CPU tensors
-    run cn_qc_pass_ref."""
+    per-frame syndrome of the input signs.  CUDA tensors launch the CN
+    frames, one launch per run of block-rows of one check degree (replaces
+    lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass), or with generic=True
+    the table-driven kernel; CPU tensors run cn_qc_pass_ref."""
     dev = m_vn.device
     _check_msgs(m_vn, tables.rows_vn, tables.cn_src.device)
     if dev.type == "cpu":
@@ -205,12 +250,22 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables):
     _check_grid(R * tables.Z, B)
     m_cn = torch.empty((tables.rows_cn, B), dtype=m_vn.dtype, device=dev)
     synd = torch.ones(B, dtype=torch.bool, device=dev)
-    err = _load().lut_cn_qc_pass(
-        int(m_vn.dtype == torch.float32), m_vn.data_ptr(), m_cn.data_ptr(),
-        synd.data_ptr(), tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
-        tables.cn_dst.data_ptr(), tables.cn_deg.data_ptr(), R, tables.Z,
-        tables.max_dc, B, _stream(dev))
-    _raise_on(err, "cn_qc_pass")
+    is_f32, stream = int(m_vn.dtype == torch.float32), _stream(dev)
+    if generic:
+        err = _load().lut_cn_qc_pass(
+            is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
+            tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
+            tables.cn_dst.data_ptr(), tables.cn_deg.data_ptr(), R, tables.Z,
+            tables.max_dc, B, stream)
+        _raise_on(err, "cn_qc_pass")
+    else:
+        fn, aligned = _load().lut_cn_qc_frames, _aligned(m_vn, m_cn)
+        for lo, hi, d in tables.cn_runs:
+            err = fn(is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
+                     tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
+                     tables.cn_dst.data_ptr(), lo, hi - lo, tables.Z,
+                     tables.max_dc, d, B, aligned, stream)
+            _class_launched(err, "cn_qc_pass")
     _launched("cn_qc_pass", m_vn.dtype)
     return m_cn, synd
 
@@ -360,8 +415,7 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
                      tables.vn_shift.data_ptr(), tables.vn_dst.data_ptr(),
                      tables.vn_node.data_ptr(), lo, hi - lo, tables.Z,
                      tables.max_dv, B, aligned, row, stream)
-            _raise_on(err, "vn_qc_pass")
-            GENERATED_LAUNCHES["vn_qc_pass"] += 1
+            _class_launched(err, "vn_qc_pass")
     _launched("vn_qc_pass", m_cn.dtype)
     return m_vn, bits, unan
 
@@ -375,10 +429,9 @@ def _planes(m, blk, B):
     return m[e0 : e0 + n * d].reshape(d, n, B)[:, : blk.num_nodes]
 
 
-def cn_std_pass_ref(m_cn: torch.Tensor, tables: StdTables):
-    """Plain-torch twin of the std CN kernel: m_cn (rows_cn, B), CN-grouped
-    -> (outputs in the same layout, synd_ok (B,) bool).  Padding rows take
-    no part in the syndrome and are left unwritten, as in the kernel."""
+def _cn_planes_ref(m_cn: torch.Tensor, tables: StdTables):
+    """The two-min of every real check on the CN-grouped slot planes:
+    (outputs in the same layout, padding rows unwritten, synd_ok (B,))."""
     B = m_cn.shape[1]
     out = torch.empty_like(m_cn)
     synd = torch.ones(B, dtype=torch.bool, device=m_cn.device)
@@ -389,28 +442,69 @@ def cn_std_pass_ref(m_cn: torch.Tensor, tables: StdTables):
     return out, synd
 
 
-def cn_std_pass(m_cn: torch.Tensor, tables: StdTables):
-    """CN pass on the CN-grouped slot-major array (already permuted):
-    min-LUT two-min and sign-parity update per degree class, per-frame
-    syndrome of the input signs over the real checks.  CUDA tensors launch
-    the kernel (replaces lut_ldpc_tpu/decoder/qc_kernels.py::cn_std_pass);
-    CPU tensors run cn_std_pass_ref."""
-    dev = m_cn.device
-    _check_msgs(m_cn, tables.rows_cn, tables.cn_cls.device)
-    if dev.type == "cpu":
-        return cn_std_pass_ref(m_cn, tables)
-    B = m_cn.shape[1]
+def cn_std_pass_ref(m_vn: torch.Tensor, tables: StdTables):
+    """Plain-torch twin of the std CN pass: m_vn (rows_vn, B) VN-grouped
+    v2c values -> (VN-grouped c2v values, synd_ok (B,) bool).  What the JAX
+    std loop does around its kernel: the gather by perm_v2c, the two-min per
+    degree class on the CN-grouped slot planes, the gather by perm_c2v on the
+    real rows.  Padding checks take no part in the syndrome; rows of padding
+    variables are left unwritten, as in the kernel."""
+    out_cn, synd = _cn_planes_ref(m_vn.index_select(0, tables.perm_v2c), tables)
+    out = torch.empty_like(m_vn)
+    real = tables.vn_real
+    out[real] = out_cn.index_select(0, tables.perm_c2v[real])
+    return out, synd
+
+
+def _cn_std_frames(m_in, out, synd, tables: StdTables, rows) -> None:
+    """The CN frames over every degree class, one launch each: check slot e
+    (a CN-grouped edge row) is read from m_in and written to out at row
+    rows[e].  cn_std_pass passes tables.inv_c2v (the VN-grouped arrays);
+    lut_ldpc_torch.profile_cn an identity table (the CN-grouped planes, for
+    the unfolded route it times)."""
+    fn, stream = _load().lut_cn_std_frames, _stream(m_in.device)
+    is_f32, aligned = int(m_in.dtype == torch.float32), _aligned(m_in, out)
+    B = m_in.shape[1]
+    for blk in tables.cn_blocks:
+        err = fn(is_f32, m_in.data_ptr(), out.data_ptr(), synd.data_ptr(),
+                 rows.data_ptr(), blk.n_pad, blk.num_nodes, blk.edge_start,
+                 blk.degree, B, aligned, stream)
+        _class_launched(err, "cn_std_pass")
+
+
+def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
+    """CN pass of a std graph on the VN-grouped slot-major v2c array: per
+    degree class the min-LUT two-min and sign-parity update, per-frame
+    syndrome of the input signs over the real checks; returns (VN-grouped
+    c2v array, synd_ok (B,) bool), rows of padding variables unwritten.  CUDA
+    tensors launch the CN frames, one launch per degree class, which read
+    each check's inputs at their VN-grouped rows and write its outputs
+    there: the row gathers by perm_v2c before the pass and by perm_c2v after
+    it live inside the kernel's loads and stores (replaces
+    lut_ldpc_tpu/decoder/qc_kernels.py::cn_std_pass and the two jnp.take of
+    the JAX std loop around it).  generic=True gathers in torch around the
+    table-driven kernel instead.  CPU tensors run cn_std_pass_ref."""
+    _check_msgs(m_vn, tables.rows_vn, tables.cn_cls.device)
+    if m_vn.device.type == "cpu":
+        return cn_std_pass_ref(m_vn, tables)
     if tables.max_dc > MAX_DEGREE:
         raise ValueError(f"check degree {tables.max_dc} > {MAX_DEGREE}")
+    B = m_vn.shape[1]
     _check_grid(tables.nchk_pad, B)
-    out = torch.empty_like(m_cn)
-    synd = torch.ones(B, dtype=torch.bool, device=dev)
-    err = _load().lut_cn_std_pass(
-        int(m_cn.dtype == torch.float32), m_cn.data_ptr(), out.data_ptr(),
-        synd.data_ptr(), tables.cn_cls.data_ptr(), len(tables.cn_blocks),
-        tables.nchk_pad, tables.max_dc, B, _stream(dev))
-    _raise_on(err, "cn_std_pass")
-    _launched("cn_std_pass", m_cn.dtype)
+    synd = torch.ones(B, dtype=torch.bool, device=m_vn.device)
+    if generic:
+        m_cn = m_vn.index_select(0, tables.perm_v2c)
+        out_cn = torch.empty_like(m_cn)
+        err = _load().lut_cn_std_pass(
+            int(m_cn.dtype == torch.float32), m_cn.data_ptr(), out_cn.data_ptr(),
+            synd.data_ptr(), tables.cn_cls.data_ptr(), len(tables.cn_blocks),
+            tables.nchk_pad, tables.max_dc, B, _stream(m_vn.device))
+        _raise_on(err, "cn_std_pass")
+        out = out_cn.index_select(0, tables.perm_c2v)
+    else:
+        out = torch.empty_like(m_vn)
+        _cn_std_frames(m_vn, out, synd, tables, tables.inv_c2v)
+    _launched("cn_std_pass", m_vn.dtype)
     return out, synd
 
 
@@ -439,8 +533,8 @@ def vn_std_pass_ref(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
 
 def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
                 params: VNParams, tables: StdTables, generic: bool = False):
-    """VN pass for iteration `it` on the VN-grouped slot-major array
-    (already permuted): per-class leave-one-out threshold trees, hard bits
+    """VN pass for iteration `it` on the VN-grouped slot-major array (what
+    cn_std_pass returns): per-class leave-one-out threshold trees, hard bits
     and per-frame sign unanimity over the real variables.  CUDA tensors
     launch the kernels generated for the spec, one launch per degree class
     (replaces lut_ldpc_tpu/decoder/qc_kernels.py::vn_std_pass), or with
@@ -480,7 +574,6 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
             err = fn(ci, m_c2v.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
                      bits.data_ptr(), unan.data_ptr(), blk.node_start, blk.n_pad,
                      blk.num_nodes, blk.edge_start, B, aligned, row, stream)
-            _raise_on(err, "vn_std_pass")
-            GENERATED_LAUNCHES["vn_std_pass"] += 1
+            _class_launched(err, "vn_std_pass")
     _launched("vn_std_pass", m_c2v.dtype)
     return m_vn, bits, unan

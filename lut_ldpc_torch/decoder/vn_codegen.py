@@ -32,14 +32,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import subprocess
 import threading
 import time
 
 import torch
 
-from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path
+from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path, ptxas_entries
 from .vn_program import CHA, MSG, build_vn_program
 
 __all__ = ["generate_source", "source_hash", "start_build", "library",
@@ -238,25 +237,10 @@ def source_hash(text: str) -> str:
 def ptxas_by_kernel(report: str) -> list:
     """Per kernel instantiation of a unit's ptxas -v report: dict(kernel,
     cls, vec, registers, stack, spill_stores, spill_loads)."""
-    out, cur = [], None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(vn_(?:qc|std)_class_kernel)"
-                      r"I[sf]Li(\d+)ELi(\d+)E", line)
-        if m:
-            cur = dict(kernel=m.group(1), cls=int(m.group(2)), vec=int(m.group(3)))
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                       spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            out.append(cur)
-            cur = None
+    out = []
+    for r in ptxas_entries(report, r"(vn_(?:qc|std)_class_kernel)I[sf]Li(\d+)ELi(\d+)E"):
+        kernel, cls, vec = r.pop("groups")
+        out.append(dict(kernel=kernel, cls=int(cls), vec=int(vec), **r))
     return sorted(out, key=lambda r: (r["kernel"], r["cls"], r["vec"]))
 
 

@@ -10,8 +10,8 @@ lut_ldpc_torch.bench_n64800), warms up, then
 - times --reps decodes on the host clock (synchronized), with the peak
   device memory of one decode;
 - traces one decode with ``torch.profiler`` and prints device time by
-  kernel name (the CN/VN kernels, the row gathers ``index_select``, the
-  rest), the busy total, the idle share of the span from the first to
+  kernel name (the CN/VN kernels, the rest), the launches and time of the
+  gather kernels (``index_select`` and the like), the busy total, the idle share of the span from the first to
   the last device operation, and for a phantom-completed graph the device
   time of the phantom row repairs (the ``lut::phantom_rows`` ranges of
   ``ArithLUTDecoder._vn``);
@@ -125,6 +125,10 @@ def main(argv=None):
         print(f"#   {ms:10.3f} ms {100 * ms / busy:5.1f} %  x{calls:<5d} {name[:90]}")
     rest = sum(ms for _, _, ms in rows[14:])
     print(f"#   {rest:10.3f} ms {100 * rest / busy:5.1f} %  (all other device operations)")
+    # row gathers (index_select and the like) wherever they come from
+    gathers = [(calls, ms) for name, calls, ms in rows if "gather" in name]
+    print(f"# gather kernels: {sum(c for c, _ in gathers)} launches, "
+          f"{sum(ms for _, ms in gathers):.3f} ms")
 
 
 if __name__ == "__main__":

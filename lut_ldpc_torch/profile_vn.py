@@ -44,10 +44,8 @@ def decode_input(dec, it: int, B: int, snr_db: float, seed: int = 0):
     for k in range(it):
         m_cn, _ = dec._cn(m_vn)
         m_vn, _, _ = dec._vn(m_cn, vcha, k)
-    m_cn, _ = dec._cn(m_vn)
-    if dec.loop == "qc":
-        return m_cn, vcha
-    return m_cn.index_select(0, dec.tables.perm_c2v), vcha
+    m_c2v, _ = dec._cn(m_vn)  # CN-grouped on the QC loop, VN-grouped on std
+    return m_c2v, vcha
 
 
 def sass_histogram(path: str, top: int = 14) -> list:
@@ -94,16 +92,11 @@ def vn_input(dec, it: int, B: int, seed: int = 1):
     tab, dev = dec.tables, dec.device
     rng = np.random.default_rng(seed)
     table = torch.as_tensor(root_levels(dec.spec, it), device=dev).to(dec.dtype)
-    rows = tab.rows_vn if dec.loop == "qc" else tab.rows_cn
-    m = table[torch.as_tensor(rng.integers(0, len(table), (rows, B)), device=dev)]
+    m = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_vn, B)), device=dev)]
     leaf = torch.as_tensor(np.asarray(dec.spec.leaf_cha), device=dev).to(dec.dtype)
     cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (tab.nvar_pad, B)), device=dev)]
-    if dec.loop == "qc":
-        m_c2v, _ = qk.cn_qc_pass(m, tab)
-    else:
-        m_cn, _ = qk.cn_std_pass(m, tab)
-        m_c2v = m_cn.index_select(0, tab.perm_c2v)
-    return m_c2v, cha
+    cn = qk.cn_qc_pass if dec.loop == "qc" else qk.cn_std_pass
+    return cn(m, tab)[0], cha
 
 
 def check_vn(dec, it: int, m_c2v, cha, reps: int = 20, plain_reps: int = 0):
@@ -160,7 +153,9 @@ def describe_build(lib, classes) -> list:
     return out
 
 
-def build_decoder(code: str, dtype, dev):
+def build_decoder(code: str, dtype, dev, kernels: bool = True):
+    """The ArithLUTDecoder of `code` in `dtype`; kernels=False leaves the
+    generated VN unit unbuilt (for callers that launch other kernels)."""
     import numpy as np
 
     from . import bench, bench_n64800 as b64
@@ -171,7 +166,7 @@ def build_decoder(code: str, dtype, dev):
     if full and np.dtype(dtype) != np.float32:
         raise ValueError("the DVB-S2 matrices decode on their full float32 spec")
     spec = (build_arith_spec if full else build_arith_prefix_spec)(codec, dtype=dtype)
-    return ArithLUTDecoder(codec, dev, spec=spec)
+    return ArithLUTDecoder(codec, dev, spec=spec, kernels=kernels)
 
 
 def main(argv=None):

@@ -7,9 +7,9 @@ so it runs on a GPU machine without JAX:
 
 Tolerance: zero on real rows (values, bits, syndrome, unanimity) and on
 decoder outputs.  Covers the QC, std and per-degree-block kernels, the
-generated VN kernels against the table-driven ones and the plain versions
-(both dtypes, an even and an odd batch width), and a mixed-precision and a
-phantom-completed decode end to end.
+generated VN kernels and the CN frames against the table-driven ones and the
+plain versions (both dtypes, an even and an odd batch width), and a
+mixed-precision and a phantom-completed decode end to end.
 """
 
 import numpy as np
@@ -103,17 +103,79 @@ def test_generated_vn_kernels_match_table_driven_and_plain(request, which, dtype
     tab, name = dec.tables, f"vn_{which}_pass"
     lib = vn_codegen.library(dec.params, dec.dtype, which)
     assert lib.handle().lut_vn_vec(0, B, 1) == (4 if B % 4 == 0 else 1)
-    n0, g0 = qk.LAUNCHES[name], qk.GENERATED_LAUNCHES[name]
+    n0, g0 = qk.LAUNCHES[name], qk.CLASS_LAUNCHES[name]
     got = vn(m, cha, it, dec.params, tab)
     assert qk.LAUNCHES[name] == n0 + 1
     per_pass = len(tab.vn_runs) if which == "qc" else len(tab.vn_blocks)
-    assert qk.GENERATED_LAUNCHES[name] == g0 + per_pass
+    assert qk.CLASS_LAUNCHES[name] == g0 + per_pass
     for want in (vn(m, cha, it, dec.params, tab, generic=True),
                  ref(m, cha, it, dec.params, tab)):
         assert torch.equal(got[0][tab.vn_real], want[0][tab.vn_real])
         assert torch.equal(got[1][tab.node_real], want[1][tab.node_real])
         assert torch.equal(got[2], want[2])
-    assert qk.GENERATED_LAUNCHES[name] == g0 + per_pass  # generic=True adds none
+    assert qk.CLASS_LAUNCHES[name] == g0 + per_pass  # generic=True adds none
+
+
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+@pytest.mark.parametrize("which", ["qc", "qc_irregular", "std"])
+def test_cn_frames_match_table_driven_and_plain(request, which, dtype, B):
+    """cn_qc_pass / cn_std_pass: the CN frames against the table-driven
+    kernel (generic=True; for std with the two gathers in torch around it)
+    and the plain version, on a VN-grouped input whose padding rows hold
+    whatever was there; an even batch width (several frames a thread) and an
+    odd one.  QC at check degree 6 and at degrees 8 and 9 (two runs of
+    block-rows a pass), std at degrees 8, 9 and 10."""
+    codec = request.getfixturevalue(
+        {"qc": "codec", "qc_irregular": "codec_qc_irregular", "std": "codec_peg"}[which])
+    spec = build_arith_prefix_spec(codec, dtype=dtype)
+    dec = ArithLUTDecoder(codec, "cuda", spec=spec, kernels=False)
+    which = "std" if which == "std" else "qc"
+    assert dec.loop == which
+    tab, it = dec.tables, spec.num_iters // 2
+    rng = np.random.default_rng(4)
+    table = torch.as_tensor(root_levels(spec, it), device="cuda")
+    m = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_vn, B)), device="cuda")]
+    m[:, ::5] = m[:, ::5].abs()  # frames that satisfy every check
+    cn, ref = ((qk.cn_qc_pass, qk.cn_qc_pass_ref) if which == "qc"
+               else (qk.cn_std_pass, qk.cn_std_pass_ref))
+    real = tab.cn_real if which == "qc" else tab.vn_real
+    name = f"cn_{which}_pass"
+    per_pass = len(tab.cn_runs) if which == "qc" else len(tab.cn_blocks)
+    is_f32 = int(dtype == np.float32)
+    vec = qk._load().lut_cn_vec(is_f32, int(tab.max_dc), B, 1)
+    assert vec == ((4 if is_f32 else 8) if B % 8 == 0 else 1)
+    n0, g0 = qk.LAUNCHES[name], qk.CLASS_LAUNCHES[name]
+    got, synd = cn(m, tab)
+    assert qk.LAUNCHES[name] == n0 + 1
+    assert qk.CLASS_LAUNCHES[name] == g0 + per_pass
+    for want, w_synd in (cn(m, tab, generic=True), ref(m, tab)):
+        assert torch.equal(got[real], want[real])
+        assert torch.equal(synd, w_synd)
+    assert synd.any() and not synd.all()
+    assert qk.CLASS_LAUNCHES[name] == g0 + per_pass  # generic=True adds none
+    if which == "std":  # the unfolded route gives the same values
+        from lut_ldpc_torch.profile_cn import unfolded_route
+
+        out, s2 = unfolded_route(m, tab)
+        assert torch.equal(out[real], got[real])
+        assert torch.equal(s2, synd)
+
+
+@pytest.fixture(scope="module")
+def codec_qc_irregular():
+    """The base matrix of the QC N=64800 code (check degrees 8 and 9,
+    variable degrees 2, 3, 9 and 17) with its shifts taken modulo Z=24:
+    N=2160, the same degree runs on the QC kernels."""
+    from lut_ldpc_torch.bench_n64800 import QC_JSON
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s = qc.load_qc(QC_JSON)
+    Z = 24
+    g = qc.qc_expand(qc.QCStructure(Z=Z, mb=s.mb, nb=s.nb,
+                                    base=np.where(s.base >= 0, s.base % Z, -1)))
+    return LUTCodec.design(g, 0.90**2, max_iters=12, Nq_Cha=16, Nq_Msg=16)
 
 
 @pytest.fixture(scope="module")
@@ -137,15 +199,15 @@ def test_std_kernels_match_twins(codec_peg, dtype):
     tab, it, B = dec.tables, spec.num_iters // 2, 300  # B not a multiple of 256
     rng = np.random.default_rng(0)
     table = torch.as_tensor(root_levels(spec, it), device="cuda")
-    m = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_cn, B)),
+    m = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_vn, B)),
                               device="cuda")]
     leaf = torch.as_tensor(np.asarray(spec.leaf_cha), device="cuda").to(m.dtype)
     cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (tab.nvar_pad, B)),
                                device="cuda")]
     n0 = dict(qk.LAUNCHES)
-    m_cn, synd = qk.cn_std_pass(m, tab)
-    r_cn, r_synd = qk.cn_std_pass_ref(m, tab)
-    assert torch.equal(m_cn[tab.cn_real], r_cn[tab.cn_real])
+    m_c2v, synd = qk.cn_std_pass(m, tab)  # VN-grouped in and out
+    r_c2v, r_synd = qk.cn_std_pass_ref(m, tab)
+    assert torch.equal(m_c2v[tab.vn_real], r_c2v[tab.vn_real])
     assert torch.equal(synd, r_synd)
     m_in = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_vn, B)),
                                  device="cuda")]

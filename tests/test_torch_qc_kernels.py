@@ -196,3 +196,20 @@ def test_wrappers_check_inputs(codecs):
         qk.vn_qc_pass(m_cn, torch.zeros((tab.nvar_pad, 4), dtype=torch.int16),
                       port.params.num_iters, port.params, tab)
     assert all(v == 0 for v in qk.LAUNCHES.values())  # CPU: twins only
+
+
+@pytest.mark.parametrize("err, counted", [
+    (0, 1), (qk.NOTHING_TO_LAUNCH, 0), (1, None), (700, None)])
+def test_class_launches_count_only_real_launches(monkeypatch, err, counted):
+    """The return code of a per-degree entry point (CN or VN frames): 0 is
+    one launch, counted; NOTHING_TO_LAUNCH (no check or no frame) counts
+    none and raises nothing; a CUDA error (invalid value, illegal address)
+    raises and counts none."""
+    monkeypatch.setitem(qk.CLASS_LAUNCHES, "cn_std_pass", 0)
+    if counted is None:
+        with pytest.raises(RuntimeError):
+            qk._class_launched(err, "cn_std_pass")
+        counted = 0
+    else:
+        qk._class_launched(err, "cn_std_pass")
+    assert qk.CLASS_LAUNCHES["cn_std_pass"] == counted

@@ -5,7 +5,10 @@ Pallas interpret mode.
 Two graphs without circulant structure: a small one with mixed degree-class
 sizes and a degree-1 variable (padding rows in every class), and the N=500
 PEG code of the dv 2-17 ensemble.  The same values (numpy seed) go through
-both; only real rows of the standard layout are compared.  Tolerance: zero
+both; only real rows of the standard layout are compared.  The port's std CN
+pass takes and returns VN-grouped arrays (its kernel folds the row gathers),
+so it is held against ``jnp.take`` by perm_v2c, the JAX kernel, and
+``jnp.take`` by perm_c2v, as the JAX std loop runs them.  Tolerance: zero
 (values, bits, syndrome and unanimity must be identical).
 """
 
@@ -90,23 +93,77 @@ def _jax_vn(jd, m_new, cha, it):
                            lay.nvar_pad, structs, prm_it, use_tots, flags)
 
 
+def _even_frames(m):
+    """Every 4th frame positive: those satisfy every check, so the syndrome
+    holds flags of both values."""
+    m = m.copy()
+    m[:, ::4] = np.abs(m[:, ::4])
+    return m
+
+
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
 @pytest.mark.parametrize("which", ["mixed", "peg500"])
 def test_cn_std_pass_ref_matches_jax(codecs, which, dtype, monkeypatch):
+    """VN-grouped v2c values, padding rows included, through the port's
+    folded pass and through gather -> JAX kernel -> gather."""
     spec, port, jd = _setup(codecs, which, dtype, monkeypatch)
     tab = port.tables
     it = spec.num_iters // 2
-    m_cn = _values(np.random.default_rng(21), root_levels(spec, it),
-                   (tab.rows_cn, B))
+    m_vn = _even_frames(_values(np.random.default_rng(21), root_levels(spec, it),
+                                (tab.rows_vn, B)))
 
-    out, synd = qk.cn_std_pass(torch.as_tensor(m_cn), tab)
+    out, synd = qk.cn_std_pass(torch.as_tensor(m_vn), tab)
+
+    lay = jd.layout
+    j_cn, j_synd = jqk.cn_std_pass(jnp.take(jnp.asarray(m_vn), lay.perm_v2c, axis=0),
+                                   lay.cn_blocks)
+    j_out = jnp.take(j_cn, lay.perm_c2v, axis=0)
+    real = tab.vn_real.numpy()
+    np.testing.assert_array_equal(out.numpy()[real], np.asarray(j_out)[real])
+    np.testing.assert_array_equal(synd.numpy(), np.asarray(j_synd))
+    assert synd.any() and not synd.all()
+    assert out.dtype == port.dtype
+    assert any(b.n_pad > b.num_nodes for b in tab.cn_blocks)  # padding checks
+    assert any(b.n_pad > b.num_nodes for b in tab.vn_blocks)  # padding variables
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32])
+@pytest.mark.parametrize("which", ["mixed", "peg500"])
+def test_cn_std_planes_match_jax(codecs, which, dtype, monkeypatch):
+    """The two-min on the CN-grouped slot planes, the middle step of
+    cn_std_pass_ref (and on the card of the unfolded route that
+    lut_ldpc_torch.profile_cn times), against the JAX kernel on the same
+    CN-grouped values."""
+    spec, port, jd = _setup(codecs, which, dtype, monkeypatch)
+    tab = port.tables
+    m_cn = _even_frames(_values(np.random.default_rng(23),
+                                root_levels(spec, spec.num_iters // 2), (tab.rows_cn, B)))
+
+    out, synd = qk._cn_planes_ref(torch.as_tensor(m_cn), tab)
 
     j_out, j_synd = jqk.cn_std_pass(jnp.asarray(m_cn), jd.layout.cn_blocks)
     real = tab.cn_real.numpy()
     np.testing.assert_array_equal(out.numpy()[real], np.asarray(j_out)[real])
     np.testing.assert_array_equal(synd.numpy(), np.asarray(j_synd))
-    assert out.dtype == port.dtype
-    assert any(b.n_pad > b.num_nodes for b in tab.cn_blocks)  # padding rows
+
+
+@pytest.mark.parametrize("which", ["mixed", "peg500"])
+def test_inv_c2v_inverts_perm_c2v(codecs, which):
+    """inv_c2v, the table the CN kernel reads and writes through: the
+    inverse of perm_c2v on the real rows (so equal to perm_v2c there), -1 at
+    every padding check row."""
+    _, pcodec = codecs[which]
+    spec = build_arith_prefix_spec(pcodec, dtype=np.int16)
+    tab = ArithLUTDecoder(pcodec, "cpu", spec=spec).tables
+    inv, c2v, v2c = (t.numpy() for t in (tab.inv_c2v, tab.perm_c2v, tab.perm_v2c))
+    vn_real, cn_real = tab.vn_real.numpy(), tab.cn_real.numpy()
+    assert inv.shape == (tab.rows_cn,) and inv.dtype == np.int32
+    np.testing.assert_array_equal(inv[c2v[vn_real]], vn_real)
+    np.testing.assert_array_equal(inv[cn_real], v2c[cn_real])
+    pad = np.ones(tab.rows_cn, bool)
+    pad[cn_real] = False
+    assert pad.any() and (inv[pad] == -1).all()
+    assert sorted(inv[cn_real]) == sorted(vn_real)
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
@@ -154,9 +211,9 @@ def test_std_wrappers_check_inputs(codecs):
     port = ArithLUTDecoder(pcodec, "cpu", spec=spec)
     tab = port.tables
     with pytest.raises(TypeError):
-        qk.cn_std_pass(torch.zeros((tab.rows_cn, 4), dtype=torch.int32), tab)
-    with pytest.raises(ValueError):
-        qk.cn_std_pass(torch.zeros((tab.rows_cn + 1, 4), dtype=torch.int16), tab)
+        qk.cn_std_pass(torch.zeros((tab.rows_vn, 4), dtype=torch.int32), tab)
+    with pytest.raises(ValueError):  # the CN-grouped height: not its input
+        qk.cn_std_pass(torch.zeros((tab.rows_cn, 4), dtype=torch.int16), tab)
     m = torch.zeros((tab.rows_vn, 4), dtype=torch.int16)
     cha = torch.zeros((tab.nvar_pad, 4), dtype=torch.int16)
     with pytest.raises(IndexError):
