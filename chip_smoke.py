@@ -6,13 +6,16 @@ Phases (each prints; any failure raises and exits non-zero):
  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
  2. design the headline, the N=64800 PEG and the two DVB-S2 codecs, and
     meanwhile build every CUDA library side by side, one nvcc each: the
-    kernel library of lut_ldpc_torch/csrc/qc_kernels.cu (the CN frames of
-    csrc/cn_frames.cuh, the block kernels, the table-driven witnesses) and
-    one generated VN unit per arithmetic spec (lut_ldpc_torch/decoder/
-    vn_codegen.py in the frames of csrc/vn_frames.cuh); print the build
+    kernel library's three units (the CN frames of csrc/cn_frames.cuh for
+    int16 and for float32 messages, and csrc/qc_kernels.cu: the CN block
+    kernel and the table-driven witnesses), one generated VN unit per
+    arithmetic spec and loop (lut_ldpc_torch/decoder/vn_codegen.py in the
+    frames of csrc/vn_frames.cuh: the QC and std class kernels, and the
+    block kernels of the headline and PEG block loops); print the build
     seconds and what ptxas reports for each kernel; the CN frames that the
     QC N=64800 decode would launch (check degrees 8 and 9) must have no
-    stack frame and no spill, as those of every decode below;
+    stack frame and no spill, as those of every decode below, and so must
+    every generated block kernel;
  3. the QC kernels at the headline shapes (N=10000 (3,6) QC code, Z=1000,
     B=8192), in the int16 and the float32 spec: the CN frames and the
     generated VN kernel each against its table-driven witness and its plain
@@ -42,16 +45,22 @@ Phases (each prints; any failure raises and exits non-zero):
     still undecided), with launch counts per kernel and dtype, checked
     against the twin path on the card for the 512 slowest frames;
  9. the PEG throughput (decoded information Mbit/s);
-10. the per-degree-block kernels against their plain versions at the
-    lut_ldpc_torch.profile_kernels shapes (headline codec, d=6 x 5000 checks,
-    d=3 x 10000 variables, B=4096) in both dtypes with single-call and
-    chained times, and on every degree block of the PEG codec (variable
-    degrees 2, 3, 9, 17; check degrees 8, 9, 10) at B=512;
+10. the per-degree-block kernels at the lut_ldpc_torch.profile_kernels
+    shapes (headline codec, d=6 x 5000 checks, d=3 x 10000 variables,
+    B=4096 and 4093) in both dtypes: the CN block kernel against its plain
+    version, the generated VN block kernel against its plain version, the
+    table-driven witness and the generated std class kernel on the same
+    planes, with single-call and chained times; the same on every degree
+    block of the PEG codec (variable degrees 2, 3, 9, 17; check degrees 8,
+    9, 10) at B=4096 (the plain versions timed once);
 11. the block-loop decode of the headline batch (loop="blocks", the full
     int16 prefix, B=8192): bits, ok and iters equal to the QC-kernel decode,
-    with its launch counts and time;
+    with its launch counts and time; then the PEG N=64800 int16 prefix on the
+    block loop at B=4096, 1.6 dB, equal to the same prefix on the std loop,
+    with its time;
 12. a small phantom-completed graph whose phantom node has true degree 2
-    (only the block loop decodes it) on the card, against the golden model;
+    (only the block loop decodes it) on the generated block kernels,
+    against the golden model;
 13. the DVB-S2 standard matrix (Z=360 form, one phantom edge) through
     make_staged_decoder at 1.6 dB, B=4096: the float32 CN frames and
     generated VN kernel at these shapes as in phase 3, class, launches by
@@ -63,13 +72,14 @@ Phases (each prints; any failure raises and exits non-zero):
     permutation: same ok and iters, same bits after un-permuting;
 15. the golden-model frames of the PEG and the DVB-S2 decode from the
     workers.
-Every main-path decode (phases 4, 8, 13, 14) must have run each CN and VN
-pass on the CN frames or the generated VN kernels, none on a table-driven
-witness.  Then a JSON line of per-kernel results (time, plain twin's time,
-the card's bound for the same work; `launches` counts the wrapper's calls on
-the main path, one a pass, and for the CN frames and the generated VN
-kernels `class_launches` the kernel launches these made, one a degree class
-or run of block-rows; the CN rows also carry `witness_ms`, the table-driven
+Every main-path decode (phases 4, 8, 11, 13, 14) must have run each CN and
+VN pass on the CN frames, the CN block kernel or the generated VN kernels,
+none on a table-driven witness.  Then a JSON line of per-kernel results
+(time, plain twin's time, the card's bound for the same work; `launches`
+counts the wrapper's calls on the main path (one a pass; one a degree block
+for `cn_block_pass`), `class_launches` the kernel launches these made, one
+a degree class, block or run of block-rows; the rows of the CN frames and
+of the generated VN kernels also carry `witness_ms`, the table-driven
 kernel's time, and `cn_std_pass` `unfolded_ms`), the card, and last the
 device line.
 """
@@ -79,12 +89,12 @@ import subprocess
 import sys
 import time
 
-SOURCE = "lut_ldpc_torch/csrc/qc_kernels.cu"  # block kernels, table-driven witnesses
-CN_SOURCE = "lut_ldpc_torch/csrc/cn_frames.cuh"  # built into SOURCE's library
+SOURCE = "lut_ldpc_torch/csrc/qc_kernels.cu"  # CN block kernel, table-driven witnesses
+CN_SOURCE = "lut_ldpc_torch/csrc/cn_frames.cuh"  # built through csrc/cn_frames.cu
 VN_SOURCE = "lut_ldpc_torch/csrc/vn_frames.cuh"  # frames of the generated units
 SOURCES = {"cn_qc_pass": CN_SOURCE, "cn_std_pass": CN_SOURCE,
            "vn_qc_pass": VN_SOURCE, "vn_std_pass": VN_SOURCE,
-           "cn_block_pass": SOURCE, "vn_block_pass": SOURCE}
+           "cn_block_pass": SOURCE, "vn_block_pass": VN_SOURCE}
 REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "vn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:873",
             "cn_std_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:1206",
@@ -94,7 +104,7 @@ REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
 
 
 T_START = time.perf_counter()
-BUILD_REPORT = []  # ptxas -v report of the kernel library, set in phase 2
+BUILD_REPORT = []  # ptxas -v report of the two CN frame units, set in phase 2
 
 
 def log(msg):
@@ -298,58 +308,68 @@ def kernels_both_specs(codec, dev, B, phase, results):
         del dec
 
 
-def start_table_build():
-    """Phase 2: compile the table-driven kernels in a thread; returns the
-    thread and the list its result lands in."""
-    import threading
-
-    from lut_ldpc_torch.decoder import qc_kernels as qk
-
-    built = []
-    thread = threading.Thread(target=lambda: built.append(qk.build_kernels(force=True)))
-    thread.start()
-    return thread, built
-
-
 def start_vn_builds(codecs, libs):
     """Phase 2: start one nvcc for the generated VN unit of every spec the
     later phases decode with (found through a decoder on the CPU, which
     needs no library); none waits for another.  codecs: name -> (codec,
-    [(spec function, dtype)]); fills libs: (tree key, dtype, loop) ->
-    (label, VNLibrary, classes)."""
+    [(spec function, dtype, loops)]), loops among "auto" (the decoder's own
+    loop), "std" (the spec's std unit: phase 10 compares the block kernels
+    with it) and "blocks"; fills libs: unit key -> (label, VNLibrary,
+    classes)."""
     import numpy as np
 
     from lut_ldpc_torch.decoder import ArithLUTDecoder, vn_codegen
 
     for name, (codec, spec_fns) in codecs.items():
-        for build, dt in spec_fns:
-            dec = ArithLUTDecoder(codec, "cpu", spec=build(codec, dtype=dt))
-            key = (dec.params.tree_key, dec.dtype, dec.loop)
-            if key not in libs:  # specs of one structure share a unit
-                libs[key] = (f"{name} {np.dtype(dt).name} {dec.loop}",
-                             vn_codegen.start_build(dec.params, dec.dtype, dec.loop,
-                                                    force=True),
-                             dec.params.classes)
+        for build, dt, loops in spec_fns:
+            spec = build(codec, dtype=dt)
+            dec = ArithLUTDecoder(codec, "cpu", spec=spec)
+            label = f"{name} {np.dtype(dt).name}"
+            for loop in loops:
+                if loop == "blocks":
+                    blocks = ArithLUTDecoder(codec, "cpu", spec=spec, loop="blocks")
+                    key = (tuple(p.key for p in blocks._progs), blocks.dtype, loop)
+                    if key not in libs:
+                        libs[key] = (f"{label} blocks", vn_codegen.start_block_build(
+                            blocks._progs, blocks.dtype, force=True), blocks._progs)
+                    continue
+                kind = dec.loop if loop == "auto" else loop
+                key = (dec.params.tree_key, dec.dtype, kind)
+                if key not in libs:  # specs of one structure share a unit
+                    libs[key] = (f"{label} {kind}",
+                                 vn_codegen.start_build(dec.params, dec.dtype, kind,
+                                                        force=True),
+                                 dec.params.classes)
 
 
-def finish_builds(thread, built, libs):
+def finish_builds(builds, libs):
+    """Phase 2: wait for every build (raises if one failed), print what
+    ptxas reports; no generated block kernel may have a stack frame or
+    spill."""
     from lut_ldpc_torch import profile_vn as pv
     from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.decoder.vn_codegen import ptxas_by_kernel
 
-    thread.join()
-    if not built:
-        raise RuntimeError("the build of the kernel library failed")
-    _, secs, report = built[0]
-    BUILD_REPORT.append(report)
-    log(f"# phase 2: built {qk.KERNEL_SOURCE} (with {qk.CN_SOURCE}) in {secs:.1f}s; "
-        f"{len(qk.ptxas_cn_frames(report))} CN frame instantiations")
-    for line in ptxas_summary(report):
+    for b in builds.values():
+        b.wait()
+    log("# phase 2: kernel library built side by side: " + ", ".join(
+        f"{unit} {b.seconds:.1f}s" for unit, b in builds.items()))
+    BUILD_REPORT.append(builds["cn_frames_int16"].report
+                        + builds["cn_frames_float32"].report)
+    log(f"#   {len(qk.ptxas_cn_frames(BUILD_REPORT[0]))} CN frame instantiations")
+    for line in ptxas_summary(builds["qc_kernels"].report):
         log(f"#   ptxas {line}")
-    qc_n64800_gate(report)
+    qc_n64800_gate(BUILD_REPORT[0])
     for label, lib, classes in libs.values():
         lib.handle()
         for line in pv.describe_build(lib, classes):
             log(f"# phase 2: generated VN kernels, {label}: {line}")
+        for r in ptxas_by_kernel(lib.report):
+            if r["kernel"] == "vn_block_class_kernel" and (
+                    r["stack"] or r["spill_stores"] or r["spill_loads"]):
+                raise AssertionError(f"{label}: block class {r['cls']} x{r['vec']} has "
+                                     f"{r['stack']} B stack, "
+                                     f"{r['spill_stores'] + r['spill_loads']} B spills")
 
 
 def qc_n64800_gate(report):
@@ -362,9 +382,9 @@ def qc_n64800_gate(report):
 
     rows = {(r["kernel"], r["dtype"], r["width"], r["vec"]): r
             for r in qk.ptxas_cn_frames(report)}
-    lib = qk._load()
     degrees = sorted({int(d) for d in (qc.load_qc(b64.QC_JSON).base >= 0).sum(axis=1)})
     for dt, is_f32 in (("int16", 0), ("float32", 1)):
+        lib = qk._load_cn(is_f32)
         for d in degrees:
             key = ("cn_qc_frames_kernel", dt, lib.lut_cn_width(d),
                    lib.lut_cn_vec(is_f32, d, b64.BATCH, 1))
@@ -379,8 +399,9 @@ def qc_n64800_gate(report):
 
 def frames_only(name, per_pass):
     """After a main-path decode: every pass of `name` went through the CN
-    frames or the generated VN kernels (per_pass class launches each), none
-    through the table-driven witness.  Returns the class launches."""
+    frames, the CN block kernel or the generated VN kernels (per_pass class
+    launches each), none through the table-driven witness.  Returns the
+    class launches."""
     from lut_ldpc_torch.decoder import qc_kernels as qk
 
     got, want = qk.CLASS_LAUNCHES[name], qk.LAUNCHES[name] * per_pass
@@ -501,7 +522,7 @@ def headline(dev, smi, codec, results, launches):
 
 def peg(dev, smi, codec, lc, lm, rank, results, launches):
     """Phases 7-9: the N=64800 PEG code of lut_ldpc_torch.bench_n64800;
-    returns frame 0's decoded bits and iteration count."""
+    returns (frame 0's decoded bits and iteration count, k)."""
     import torch
 
     from lut_ldpc_torch import bench, bench_n64800 as b64
@@ -565,11 +586,13 @@ def peg(dev, smi, codec, lc, lm, rank, results, launches):
     log(f"# phase 9: PEG N=64800 {mbits:.3f} Mbit/s ({dt_s * 1e3:.3f} ms per {B} frames, "
         f"mean iters {float(out[2].float().mean()):.4f}, ok {float(out[1].float().mean()):.6f}) "
         f"on {smi}")
-    return frame0
+    return frame0, k
 
 
 def block_kernels(dev, head_codec, peg_codec, results):
-    """Phase 10: cn_block_pass / vn_block_pass against their plain versions."""
+    """Phase 10: cn_block_pass / vn_block_pass against their plain versions,
+    the VN block kernel also against the table-driven witness and the
+    generated std class kernel on the same planes."""
     import numpy as np
 
     from lut_ldpc_torch import profile_kernels as pk
@@ -579,23 +602,30 @@ def block_kernels(dev, head_codec, peg_codec, results):
         name = np.dtype(dt).name
         spec = build_arith_prefix_spec(head_codec, dtype=dt)
         dec = ArithLUTDecoder(head_codec, dev, spec=spec, loop="blocks")
-        for r in pk.check_blocks(dec, spec.num_iters // 2, 4096, chain=32):
-            log(f"# phase 10: {pk.describe(r, name)}")
-            key = f"{r['kind']}_block_pass"
-            if dt == np.int16:
-                results[key] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
-                                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                                    bound_by=r["bound_by"], library_ms=None)
-            else:
-                results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
-                                                  r["max_abs_err"])
+        for B in (4096, 4093):
+            full = B == 4096
+            for r in pk.check_blocks(dec, spec.num_iters // 2, B, chain=32 if full else 0,
+                                     plain_reps=2 if full else 0):
+                log(f"# phase 10: {pk.describe(r, name, B)}")
+                key = f"{r['kind']}_block_pass"
+                if dt == np.int16 and full:
+                    results[key] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                        bound_by=r["bound_by"], library_ms=None)
+                    if r["kind"] == "vn":
+                        results[key]["witness_ms"] = r["witness_ms"]
+                else:
+                    results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                                      r["max_abs_err"])
+        del dec
         spec = build_arith_prefix_spec(peg_codec, dtype=dt)
         dec = ArithLUTDecoder(peg_codec, dev, spec=spec, loop="blocks")
-        for r in pk.check_blocks(dec, spec.num_iters // 2, 512, reps=5, plain_reps=1):
-            log(f"# phase 10: PEG block B=512: {pk.describe(r, name)}")
+        for r in pk.check_blocks(dec, spec.num_iters // 2, 4096, reps=5, plain_reps=1):
+            log(f"# phase 10: PEG block: {pk.describe(r, name, 4096)}")
+        del dec
 
 
-def block_loop(dev, smi, codec, dec, lc_d, lm_d, launches):
+def block_loop(dev, smi, codec, dec, lc_d, lm_d, launches, results):
     """Phase 11: the headline batch on the per-degree-block loop."""
     import torch
 
@@ -614,6 +644,9 @@ def block_loop(dev, smi, codec, dec, lc_d, lm_d, launches):
         launches[name] = qk.LAUNCHES[name]
         if launches[name] < 1:
             raise AssertionError(f"the block loop skipped {name}")
+    results["cn_block_pass"]["class_launches"] = frames_only("cn_block_pass", 1)
+    results["vn_block_pass"]["class_launches"] = frames_only(
+        "vn_block_pass", len(blocks.layout.vn_blocks))
     if qk.LAUNCHES["cn_qc_pass"] or qk.LAUNCHES["vn_qc_pass"]:
         raise AssertionError("the block loop launched a QC kernel")
     check_shapes(out, B, codec.nvar)
@@ -624,6 +657,44 @@ def block_loop(dev, smi, codec, dec, lc_d, lm_d, launches):
         f"and iters equal to the QC-kernel decode; ok {float(out[1].float().mean()):.6f}, "
         f"mean iters {float(out[2].float().mean()):.4f}, {dt_s * 1e3:.3f} ms a decode "
         f"({B * codec.k / dt_s / 1e6:.3f} Mbit/s) on {smi}")
+
+
+def peg_block_loop(dev, smi, codec, lc, lm, k):
+    """Phase 11, second part: the PEG N=64800 int16 prefix at full width on
+    the per-degree-block loop (its degree-17 block among them) against the
+    same prefix on the std loop."""
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.decoder import ArithLUTDecoder, build_arith_prefix_spec
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    lc_d, lm_d = torch.as_tensor(lc, device=dev), torch.as_tensor(lm, device=dev)
+    B = lc_d.shape[0]
+    spec = build_arith_prefix_spec(codec, dtype=np.int16)
+    std = ArithLUTDecoder(codec, dev, spec=spec)
+    std_s, want = bench.time_decode(std, lc_d, lm_d, 2, warmup=1)
+    del std
+    blocks = ArithLUTDecoder(codec, dev, spec=spec, loop="blocks")
+    if blocks.loop != "blocks" or 17 not in [b.degree for b in blocks.layout.vn_blocks]:
+        raise AssertionError("expected the PEG prefix on the block loop")
+    qk.reset_launches()
+    out = blocks(lc_d, lm_d)
+    torch.cuda.synchronize()
+    if qk.LAUNCHES["cn_std_pass"] or qk.LAUNCHES["vn_std_pass"]:
+        raise AssertionError("the block loop launched a std kernel")
+    frames_only("cn_block_pass", 1)
+    frames_only("vn_block_pass", len(blocks.layout.vn_blocks))
+    check_shapes(out, B, codec.nvar)
+    same(out, want, "PEG block loop vs std loop")
+    del want
+    dt_s, _ = bench.time_decode(blocks, lc_d, lm_d, 2, warmup=1)
+    log(f"# phase 11: PEG N=64800 int16 prefix S={blocks.S} B={B} on the block loop: bits, "
+        f"ok and iters equal to the std loop; ok {float(out[1].float().mean()):.6f}, mean "
+        f"iters {float(out[2].float().mean()):.4f}, {dt_s * 1e3:.3f} ms a decode "
+        f"({B * k / dt_s / 1e6:.3f} Mbit/s; std loop {std_s * 1e3:.3f} ms, "
+        f"{B * k / std_s / 1e6:.3f} Mbit/s) on {smi}")
 
 
 def phantom_toy(dev):
@@ -652,8 +723,7 @@ def phantom_toy(dev):
     qk.reset_launches()
     out = dec(torch.as_tensor(lc, device=dev), torch.as_tensor(lm, device=dev))
     torch.cuda.synchronize()
-    if qk.LAUNCHES["vn_block_pass"] < 1:
-        raise AssertionError("the phantom decode launched no block kernel")
+    frames_only("vn_block_pass", len(dec.layout.vn_blocks))
     bits, ok, iters = (o.cpu().numpy() for o in out)
     for f in range(64):
         b_ref, it_ref = codec.decode_ref(lc[f], lm[f])
@@ -777,6 +847,7 @@ def main():
     from lut_ldpc_torch import bench, bench_n64800 as b64
     from lut_ldpc_torch.decoder import (LUTCodec, build_arith_prefix_spec,
                                         build_arith_spec)
+    from lut_ldpc_torch.decoder import qc_kernels as qk
 
     dev = torch.device("cuda")
     os.environ.setdefault("LUT_DECODE_MEM_BUDGET", str(b64.MEM_BUDGET))
@@ -794,8 +865,10 @@ def main():
     log(f"#   DVB-S2 codec designed in {time.perf_counter() - t0:.1f}s (N={dvb_codec.nvar}, "
         f"Z={dvb_codec.graph.qc.Z}, {dvb_codec.graph.num_edges} edges with "
         f"{len(dvb_codec.graph.phantoms)} phantom, k={dvb_codec.k})")
-    prefix = [(build_arith_prefix_spec, np.int16), (build_arith_prefix_spec, np.float32)]
-    full = [(build_arith_spec, np.float32)]
+    # per spec the loops phases 3-14 run it on
+    prefix = [(build_arith_prefix_spec, dt, ("auto", "std", "blocks"))
+              for dt in (np.int16, np.float32)]
+    full = [(build_arith_spec, np.float32, ("auto",))]
     results, launches = {}, {}
     # the golden model takes minutes a frame at N=64800: its two workers
     # start as soon as their labels exist and run beside everything below
@@ -805,7 +878,7 @@ def main():
         lc, lm = bench.channel_labels(codec, b64.BATCH, b64.SNR_DB)
         golden = pool.apply_async(b64.golden_frame, ("peg", lc[0], lm[0]))
         t0 = time.perf_counter()
-        table_build, libs = start_table_build(), {}
+        builds, libs = qk.start_builds(force=True), {}
         start_vn_builds({"headline": (head_codec, prefix), "PEG": (codec, prefix + full),
                          "DVB-S2": (dvb_codec, full)}, libs)
         dvb_lc, dvb_lm = bench.channel_labels(dvb_codec, b64.BATCH, b64.SNR_DB)
@@ -815,19 +888,21 @@ def main():
                                       b64.DESIGN_THR**2, max_iters=b64.MAX_ITERS,
                                       Nq_Cha=16, Nq_Msg=16)
         start_vn_builds({"DVB-S2 unpermuted": (dvb_codec_g, full)}, libs)
-        finish_builds(*table_build, libs)
-        log(f"#   {1 + len(libs)} libraries built side by side in "
+        finish_builds(builds, libs)
+        log(f"#   {len(builds) + len(libs)} libraries built side by side in "
             f"{time.perf_counter() - t0:.1f}s")
         head_dec, head_lc, head_lm = headline(dev, smi, head_codec, results, launches)
         torch.cuda.empty_cache()
         # the PEG rank (a third busy worker) starts after the headline's
         # timed phase
         rank = pool.apply_async(b64.info_bits, ("peg",))
-        peg_frame0 = peg(dev, smi, codec, lc, lm, rank, results, launches)
+        peg_frame0, peg_k = peg(dev, smi, codec, lc, lm, rank, results, launches)
         torch.cuda.empty_cache()
         block_kernels(dev, head_codec, codec, results)
-        block_loop(dev, smi, head_codec, head_dec, head_lc, head_lm, launches)
+        block_loop(dev, smi, head_codec, head_dec, head_lc, head_lm, launches, results)
         del head_dec, head_lc, head_lm
+        torch.cuda.empty_cache()
+        peg_block_loop(dev, smi, codec, lc, lm, peg_k)
         phantom_toy(dev)
         torch.cuda.empty_cache()
         dvb_frame0 = dvbs2(dev, smi, dvb_codec, dvb_codec_g, dvb_lc, dvb_lm)

@@ -1,5 +1,7 @@
-// CN frames of the value-domain decode for Hopper (sm_90a); included by
-// qc_kernels.cu, compiled into the same library.
+// CN frames of the value-domain decode for Hopper (sm_90a); compiled through
+// cn_frames.cu into one library per message storage type (LUT_CN_STORAGE:
+// int16_t or float), each half of the instantiations, the two built side by
+// side.
 //
 // Replace lut_ldpc_tpu/decoder/qc_kernels.py::cn_qc_pass (Pallas body
 // _cn_qc_kernel) and ::cn_std_pass (_cn_std_kernel) with the arithmetic of
@@ -45,7 +47,13 @@
 
 #include "cn_frame.h"
 
+#ifndef LUT_CN_STORAGE
+#error "build with -DLUT_CN_STORAGE=int16_t or -DLUT_CN_STORAGE=float"
+#endif
+
 namespace lutcn {
+
+using Storage = LUT_CN_STORAGE;  // the message type this library serves
 
 // Settled on an H100 80GB HBM3 at 700 W on builds of this file with other
 // values (PERF.md, section 6): 8-byte accesses were no faster than 16
@@ -218,15 +226,14 @@ struct Tag {
 template <int N>
 using Int = std::integral_constant<int, N>;
 
+// the library's storage type only: a call for the other one is refused
 template <int W, typename F>
 int with_width(int is_f32, int vec, F& f) {
-  constexpr int Vf = W <= kVecWidest ? vec_frames<float>() : 1;
-  constexpr int Vs = W <= kVecWidest ? vec_frames<int16_t>() : 1;
-  if (is_f32)
-    return vec > 1 ? f(Tag<float>(), Int<W>(), Int<Vf>())
-                   : f(Tag<float>(), Int<W>(), Int<1>());
-  return vec > 1 ? f(Tag<int16_t>(), Int<W>(), Int<Vs>())
-                 : f(Tag<int16_t>(), Int<W>(), Int<1>());
+  constexpr int V = W <= kVecWidest ? vec_frames<Storage>() : 1;
+  if ((is_f32 != 0) != std::is_same<Storage, float>::value)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vec > 1 ? f(Tag<Storage>(), Int<W>(), Int<V>())
+                 : f(Tag<Storage>(), Int<W>(), Int<1>());
 }
 
 // f(Tag<T>(), Int<W>(), Int<V>()) for the instantiation that serves

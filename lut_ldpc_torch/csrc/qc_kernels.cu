@@ -11,17 +11,18 @@
 //     between the VN- and CN-grouped orders is a row gather outside the
 //     kernel, and padding rows of a class are skipped (never read into the
 //     syndrome or unanimity flags, never written);
-//   cn_block_kernel / vn_block_kernel replace
-//     lut_ldpc_tpu/decoder/pallas_kernels.py::cn_pass (_cn_kernel) and
-//     ::vn_pass (_vn_kernel): one degree block, (d, n_pad, B) slot planes,
+//   cn_block_kernel replaces lut_ldpc_tpu/decoder/pallas_kernels.py::cn_pass
+//     (_cn_kernel), and vn_block_kernel, the table-driven witness of the
+//     generated vn_block_class_kernel, computes ::vn_pass (_vn_kernel): one
+//     degree block, (d, n_pad, B) slot planes,
 //     the VN tree evaluated in full for every leave-one-out output through
 //     the caller's index table (no shared sweeps), every op a plain select
 //     chain with a tie at a zero sum.  Bound: bytes, as the others; the full
 //     evaluation costs d times the tree per node, which a block of low
 //     degree hides behind its loads and a block of high degree does not.
-// The decoders' CN passes run in the frames of cn_frames.cuh (included at the
-// end, built into the same library); cn_qc_kernel and cn_std_kernel here are
-// their table-driven witness, as vn_qc_kernel and vn_std_kernel are for the
+// The decoders' CN passes run in the frames of cn_frames.cuh (libraries of
+// their own); cn_qc_kernel and cn_std_kernel here are their table-driven
+// witness, as vn_qc_kernel, vn_std_kernel and vn_block_kernel are for the
 // generated VN kernels of vn_frames.cuh.
 // What the Pallas kernels compute (_vn_class_compute, the two-min CN) is
 // kept; the TPU schedule (halo planes, 8-row realign, per-class tile
@@ -633,5 +634,3 @@ int lut_vn_block_pass(int is_f32, const void* m_in, const void* cha,
 }
 
 }  // extern "C"
-
-#include "cn_frames.cuh"

@@ -14,9 +14,14 @@
 // (_vn_class_compute: left-to-right float32 sums, select chain, sym, tie at
 // s == 0, the two shared sweeps) is kept bit for bit, their TPU schedule
 // (halo planes, realign, window DMAs, SMEM parameter refs) is not.  The
-// table-driven vn_qc_kernel / vn_std_kernel of qc_kernels.cu compute the same
-// from int tables with one binary for every codec; they keep their values in
-// per-thread local memory and chase three dependent loads per operand.
+// block entry replaces lut_ldpc_tpu/decoder/pallas_kernels.py::vn_pass
+// (_vn_kernel): one degree block's tree for every leave-one-out output
+// through the block's index table, op 0 as total minus self under use_tot,
+// merged into the same kind of straight-line program by vn_program.py.  The
+// table-driven vn_qc_kernel / vn_std_kernel / vn_block_kernel of
+// qc_kernels.cu compute the same from int tables with one binary for every
+// codec; they keep their values in per-thread local memory and chase three
+// dependent loads per operand.
 //
 // Bound: bytes (int16 or float32 messages once in and once out, channel
 // values in, int8 bits out).  What the card really runs out of is its rate
@@ -108,6 +113,19 @@ struct StdRows {
   int edge_start, n_pad, off;
   __device__ __forceinline__ int operator()(int k) const {
     return edge_start + k * n_pad + off;
+  }
+};
+
+// Slot rows of a VN layout block read through a row table: slot row e of
+// the block is row rows[e] of the input (the block loop's c2v gather:
+// perm_c2v, the CN-grouped row of every VN-grouped edge row), or row e
+// itself where rows is null (a stand-alone block).
+struct GatherRows {
+  const int* rows;
+  StdRows slot;
+  __device__ __forceinline__ int operator()(int k) const {
+    const int e = slot(k);
+    return rows != nullptr ? rows[e] : e;
   }
 };
 
@@ -217,6 +235,31 @@ vn_std_class_kernel(const T* __restrict__ m_in, const T* __restrict__ cha,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the per-degree-block loop: the num_nodes real node rows of VN layout block
+// C; inputs at rows[slot row] of the CN-grouped m_in (the gather folded into
+// the loads), outputs at the slot rows of the VN-grouped m_out (edge_start,
+// n_pad rows a plane), channel and bits at node rows from node_start
+// ---------------------------------------------------------------------------
+template <typename T, int C, int V>
+__global__ void __launch_bounds__(kThreads)
+vn_block_class_kernel(const T* __restrict__ m_in, const int* __restrict__ rows,
+                      const T* __restrict__ cha, T* __restrict__ m_out,
+                      int8_t* __restrict__ bits, uint8_t* __restrict__ unan,
+                      int node_start, int n_pad, int num_nodes, int edge_start,
+                      int B, int nchunks,
+                      const __grid_constant__ typename VnClass<C>::Prm prm) {
+  const long long items = static_cast<long long>(num_nodes) * nchunks;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    int off, b;
+    if (!item_frames<V>(item, nchunks, B, &off, &b)) continue;
+    const StdRows out{edge_start, n_pad, off};
+    const GatherRows in{rows, out};
+    vn_item<T, C, V>(m_in, cha, m_out, bits, unan, in, out,
+                     static_cast<size_t>(node_start + off), B, b, prm);
+  }
+}
+
 // Blocks of `kernel` the card holds at once.
 template <typename K>
 int resident_blocks(K kernel) {
@@ -279,6 +322,21 @@ int launch_std(const void* m_in, const void* cha, void* m_out, void* bits,
   void* args[] = {&m_in,      &cha,   &m_out,     &bits,       &unan, &node_start,
                   &n_pad, &num_nodes, &edge_start, &B, &nchunks, &prm};
   return launch(vn_std_class_kernel<T, C, V>, &resident,
+                static_cast<long long>(num_nodes) * nchunks, args, stream);
+}
+
+template <typename T, int C, int V>
+int launch_block(const void* m_in, const void* rows, const void* cha,
+                 void* m_out, void* bits, void* unan, int node_start, int n_pad,
+                 int num_nodes, int edge_start, int B, const float* prm_row,
+                 void* stream) {
+  static int resident = 0;
+  int nchunks = chunks(B, V);
+  typename VnClass<C>::Prm prm = class_params<C>(prm_row);
+  void* args[] = {&m_in,       &rows,      &cha,        &m_out, &bits,
+                  &unan,       &node_start, &n_pad,     &num_nodes,
+                  &edge_start, &B,         &nchunks,    &prm};
+  return launch(vn_block_class_kernel<T, C, V>, &resident,
                 static_cast<long long>(num_nodes) * nchunks, args, stream);
 }
 
@@ -356,5 +414,29 @@ int lut_vn_std_class(int cls, const void* m_in, const void* cha, void* m_out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 #endif  // LUT_VN_STD
+
+#ifdef LUT_VN_BLOCK
+// The real node rows of VN layout block `cls`; rows: the input row of every
+// slot row, or null for the slot rows themselves.
+int lut_vn_block_class(int cls, const void* m_in, const void* rows,
+                       const void* cha, void* m_out, void* bits, void* unan,
+                       int node_start, int n_pad, int num_nodes, int edge_start,
+                       int B, int aligned, const float* prm_row, void* stream) {
+  switch (cls) {
+#define LUT_VN_CASE(C)                                                      \
+  case C:                                                                   \
+    return lutvn::use_vec<C>(B, aligned)                                    \
+               ? lutvn::launch_block<LutVnT, C, lutvn::class_vec<C>()>(     \
+                     m_in, rows, cha, m_out, bits, unan, node_start, n_pad, \
+                     num_nodes, edge_start, B, prm_row, stream)             \
+               : lutvn::launch_block<LutVnT, C, 1>(                         \
+                     m_in, rows, cha, m_out, bits, unan, node_start, n_pad, \
+                     num_nodes, edge_start, B, prm_row, stream);
+    LUT_VN_FOR_CLASSES(LUT_VN_CASE)
+#undef LUT_VN_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif  // LUT_VN_BLOCK
 
 }  // extern "C"

@@ -13,12 +13,15 @@ from one of three places:
   writes the VN-grouped arrays, so the two row gathers of the JAX loop
   (``jnp.take`` before and after its CN kernel) are inside its loads and
   stores and every array of the loop is VN-grouped;
-- ``blocks``, the plain ``_build`` loop (:621-823): the same row gathers,
-  then one ``cn_block_pass`` per check degree block and one
-  ``vn_block_pass`` per variable degree block (``block_kernels``).  It is
-  taken where neither kernel loop applies (a phantom node whose true degree
-  is not 1) or when the constructor is given ``loop="blocks"``.  Its row
-  gathers are torch ``index_select``s.
+- ``blocks``, the plain ``_build`` loop (:621-823): one ``cn_block_pass``
+  per check degree block on the CN-grouped v2c array (a torch
+  ``index_select`` by perm_v2c before it), all writing one CN-grouped c2v
+  array, then ``vn_blocks_pass`` (``block_kernels``): one generated kernel
+  per variable degree block, which reads the CN-grouped c2v array through
+  perm_c2v (the JAX loop's second gather folded into its loads) and writes
+  one VN-grouped array and one bits array.  It is taken where neither
+  kernel loop applies (a phantom node whose true degree is not 1) or when
+  the constructor is given ``loop="blocks"``.
 
 Around the passes, shared by the three:
 
@@ -186,10 +189,6 @@ class ArithLUTDecoder:
             p["cls"] = len(blocks) + true_degs.index(p["td"])
         self.params = vn_params(self.spec, self.layout, self.device,
                                 extra_degrees=true_degs)
-        if kernels and self.device.type == "cuda" and self.loop != "blocks":
-            # the spec's generated VN kernels: built (or found) here, not
-            # inside the first launch
-            vn_codegen.library(self.params, self.dtype, self.loop).handle()
         self.ten = arith_tensors(self.spec, self.layout, self.device)
         spec_di = [self.spec.degrees.index(d)
                    for d in [blk.degree for blk in blocks] + true_degs]
@@ -199,6 +198,13 @@ class ArithLUTDecoder:
         if self.loop == "blocks":
             self._progs = [self._block_program(bi, spec_di[bi])
                            for bi in range(len(blocks))]
+        if kernels and self.device.type == "cuda":
+            # the generated VN kernels of the spec or of the block programs:
+            # built (or found) here, not inside the first launch
+            if self.loop == "blocks":
+                vn_codegen.block_library(self._progs, self.dtype).handle()
+            else:
+                vn_codegen.library(self.params, self.dtype, self.loop).handle()
 
     # ------------------------------------------------------------------
     def _build_phantoms(self):
@@ -266,13 +272,13 @@ class ArithLUTDecoder:
         m_cn = m_vn.index_select(0, self.tables.perm_v2c)
         fn = bk.cn_block_pass if self.kernels else bk.cn_block_pass_ref
         B = m_cn.shape[1]
-        outs, synd = [], None
+        out, synd = torch.empty_like(m_cn), None
         for blk in self.layout.cn_blocks:
             d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
-            out, ok = fn(m_cn[e0 : e0 + n * d].view(d, n, B), blk.num_nodes)
-            outs.append(out.view(-1, B))
+            _, ok = fn(m_cn[e0 : e0 + n * d].view(d, n, B), blk.num_nodes,
+                       out=out[e0 : e0 + n * d].view(d, n, B))
             synd = ok if synd is None else synd & ok
-        return torch.cat(outs, dim=0), synd
+        return out, synd
 
     def _vn(self, m_cn, vcha, it):
         """c2v values as ``_cn`` gives them -> (VN-grouped v2c values, bits,
@@ -290,15 +296,21 @@ class ArithLUTDecoder:
             fn = qk.vn_std_pass if self.kernels else qk.vn_std_pass_ref
             m_vn, bits, unan = fn(m_new, vcha, it, self.params, self.tables)
         else:
-            m_new = m_cn.index_select(0, self.tables.perm_c2v)
-            m_vn, bits, unan = self._vn_blocks(m_new, vcha, it)
+            fn = bk.vn_blocks_pass if self.kernels else bk.vn_blocks_pass_ref
+            m_vn, bits, unan = fn(m_cn, vcha, it, self._progs, self.tables)
         if not self._ph:
             return m_vn, bits, unan
         with torch.profiler.record_function("lut::phantom_rows"):
             for p in self._ph:
                 # true-degree outputs over the real sockets (for true degree
-                # 1 the tree reads the channel alone)
-                msgs = [] if p["td"] == 1 else [m_new[r] for r in p["real"]]
+                # 1 the tree reads the channel alone); the block loop reads
+                # them in the CN-grouped array
+                if p["td"] == 1:
+                    msgs = []
+                elif self.loop == "blocks":
+                    msgs = list(m_cn.index_select(0, p["cn_rows_real"]))
+                else:
+                    msgs = [m_new[r] for r in p["real"]]
                 outs = self._ph_node_outputs(p, msgs, vcha[p["node_row"]], it)
                 m_vn[p["rows_real"]] = torch.stack(outs)
                 if self.loop == "blocks":  # phantom sockets mirror output 0
@@ -309,22 +321,6 @@ class ArithLUTDecoder:
                 bits, unan = seam_bits_unan(self.layout, m_vn)
             m_vn[self._rows_ph] = self._pin
         return m_vn, bits, unan
-
-    def _vn_blocks(self, m_new, vcha, it):
-        """One ``vn_block_pass`` per degree block on the VN-grouped c2v
-        values (arith_decoder.py:690-697)."""
-        fn = bk.run_vn_block if self.kernels else bk.run_vn_block_ref
-        B = m_new.shape[1]
-        outs, bits, unan = [], [], None
-        for blk, prog in zip(self.layout.vn_blocks, self._progs):
-            d, n, e0 = blk.degree, blk.n_pad, blk.edge_start
-            out, b, u = fn(m_new[e0 : e0 + n * d].view(d, n, B),
-                           vcha[blk.node_start : blk.node_start + n], prog, it,
-                           blk.num_nodes)
-            outs.append(out.view(-1, B))
-            bits.append(b.view(torch.int8))
-            unan = u if unan is None else unan & u
-        return torch.cat(outs, dim=0), torch.cat(bits, dim=0), unan
 
     def _ph_node_outputs(self, p, msgs, cha_row, it):
         """True-degree leave-one-out outputs of one phantom node

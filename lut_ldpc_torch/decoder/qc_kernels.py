@@ -27,10 +27,14 @@ one launch per degree class).  The table-driven ``cn_*_kernel`` /
 only when a caller passes ``generic=True`` (a second witness and the time
 to compare with); the std CN witness gathers in torch around its kernel.
 
-``qc_kernels.cu`` (which includes the CN frames) is compiled with nvcc at
-first use into ``build/torch_kernels/`` (a shared library with a plain C
-interface, loaded with ctypes; it also holds the per-degree-block pair whose
-wrappers are in ``block_kernels``) and launched on the current stream.
+The kernel library is three units, compiled with nvcc side by side at first
+use into ``build/torch_kernels/`` (shared libraries with a plain C
+interface, loaded with ctypes, launched on the current stream): the CN
+frames of ``cn_frames.cu`` once for int16 and once for float32 messages,
+and ``qc_kernels.cu``, the table-driven witnesses and the CN block kernel
+(wrappers in ``block_kernels``).  Each file is named by a
+sha256 over the text of its sources and the compiler flags
+(``nvcc.library_name``), so a library on disk is never stale.
 ``LAUNCHES`` counts each wrapper's calls that launched a kernel (passes);
 ``CLASS_LAUNCHES`` the launches of the per-degree kernels these made, one
 for each call of a per-degree entry point that returned 0 (an entry point
@@ -41,26 +45,30 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
-import time
 
 import torch
 
-from . import vn_codegen
-from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path, ptxas_entries
+from . import nvcc, vn_codegen
 from .params import QCTables, StdTables, VNParams
 
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
-           "build_kernels", "ptxas_cn_frames", "LAUNCHES", "LAUNCHES_BY_DTYPE",
-           "CLASS_LAUNCHES", "NOTHING_TO_LAUNCH", "reset_launches",
-           "KERNEL_SOURCE", "CN_SOURCE"]
+           "build_kernels", "start_builds", "unit_path", "ptxas_cn_frames",
+           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "NOTHING_TO_LAUNCH",
+           "reset_launches", "UNITS", "KERNEL_SOURCE", "CN_SOURCE"]
 
-KERNEL_SOURCE = os.path.join(CSRC_DIR, "qc_kernels.cu")
-CN_SOURCE = os.path.join(CSRC_DIR, "cn_frames.cuh")  # included by KERNEL_SOURCE
-_SOURCES = (KERNEL_SOURCE, CN_SOURCE, os.path.join(CSRC_DIR, "cn_frame.h"))
-_LIB_PATH = os.path.join(BUILD_DIR, "libqc_kernels.so")
+KERNEL_SOURCE = "qc_kernels.cu"  # the CN block kernel and the table-driven witnesses
+CN_SOURCE = "cn_frames.cuh"      # the CN frames, compiled through cn_frames.cu
+# unit -> (the file nvcc compiles, every file of the unit, extra flags);
+# files in csrc/
+UNITS = {
+    "qc_kernels": (KERNEL_SOURCE, (KERNEL_SOURCE,), ()),
+    "cn_frames_int16": ("cn_frames.cu", ("cn_frames.cu", CN_SOURCE, "cn_frame.h"),
+                        ("-DLUT_CN_STORAGE=int16_t",)),
+    "cn_frames_float32": ("cn_frames.cu", ("cn_frames.cu", CN_SOURCE, "cn_frame.h"),
+                          ("-DLUT_CN_STORAGE=float",)),
+}
 MAX_DEGREE = 32  # widest row table the kernels are instantiated for
 MAX_TREE_OPS = 32  # ops of one VN tree (kMaxOps in the source)
 NOTHING_TO_LAUNCH = -1  # kNothingToLaunch of the CN and VN frames
@@ -70,13 +78,14 @@ LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
             "vn_std_pass": 0, "cn_block_pass": 0, "vn_block_pass": 0}
 LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
                      for dt in ("int16", "float32")}
-# launches of the per-degree kernels (CN frames, generated VN kernels;
-# several a pass); a pass through a table-driven kernel adds nothing here
-CLASS_LAUNCHES = {"cn_qc_pass": 0, "vn_qc_pass": 0, "cn_std_pass": 0,
-                  "vn_std_pass": 0}
+# launches of the per-degree kernels (CN frames, generated VN kernels,
+# the CN block kernel; several a pass); a pass through a table-driven
+# witness adds nothing here
+CLASS_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 
 _lock = threading.Lock()
-_lib = None
+_builds: dict = {}  # unit -> nvcc.Build
+_libs: dict = {}    # unit -> loaded library
 
 
 def reset_launches() -> None:
@@ -90,21 +99,37 @@ def _launched(name: str, dtype: torch.dtype) -> None:
     LAUNCHES_BY_DTYPE[name, str(dtype).removeprefix("torch.")] += 1
 
 
-def build_kernels(force: bool = False) -> tuple:
-    """Compile the kernel library if missing or older than its sources;
-    returns (library path, seconds spent compiling, ptxas -v report)."""
-    if (not force and os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH)
-            >= max(os.path.getmtime(f) for f in _SOURCES)):
-        return _LIB_PATH, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH, time.perf_counter() - t0, proc.stderr
+def unit_path(unit: str, csrc: str | None = None) -> str:
+    """The library file of `unit`, named by the text of its sources (in
+    `csrc`, the package's csrc/ by default) and the compiler flags."""
+    csrc = csrc or nvcc.CSRC_DIR
+    _, files, flags = UNITS[unit]
+    return os.path.join(nvcc.BUILD_DIR, nvcc.library_name(
+        unit, [os.path.join(csrc, f) for f in files], flags))
+
+
+def start_builds(force: bool = False) -> dict:
+    """Every unit's build, started side by side where its file is missing
+    (or `force`); returns without waiting."""
+    with _lock:
+        for unit, (source, _, flags) in UNITS.items():
+            if force or unit not in _builds:
+                _builds[unit] = nvcc.Build(unit_path(unit),
+                                           os.path.join(nvcc.CSRC_DIR, source),
+                                           flags, force)
+                _libs.pop(unit, None)
+        return dict(_builds)
+
+
+def build_kernels(force: bool = False) -> dict:
+    """Build the kernel library's units side by side, each where its file is
+    missing (or `force`), and wait for them; returns unit -> nvcc.Build
+    (path, seconds spent compiling, ptxas -v report).  Raises if nvcc
+    failed."""
+    builds = start_builds(force)
+    for b in builds.values():
+        b.wait()
+    return builds
 
 
 def ptxas_cn_frames(report: str) -> list:
@@ -113,45 +138,58 @@ def ptxas_cn_frames(report: str) -> list:
     lutcn::kExact), vec (frames a thread), registers, stack, spill_stores,
     spill_loads)."""
     out = []
-    for r in ptxas_entries(report, r"(cn_(?:qc|std)_frames_kernel)I([sf])Li(\d+)ELi(\d+)E"):
+    for r in nvcc.ptxas_entries(report, r"(cn_(?:qc|std)_frames_kernel)I([sf])Li(\d+)ELi(\d+)E"):
         kernel, t, w, v = r.pop("groups")
         out.append(dict(kernel=kernel, dtype="int16" if t == "s" else "float32",
                         width=int(w), vec=int(v), **r))
     return out
 
 
-def _load():
-    global _lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_CN_FRAMES = {"lut_cn_width": [_I], "lut_cn_vec": [_I] * 4,
+              "lut_cn_qc_frames": [_I] + [_P] * 6 + [_I] * 7 + [_P],
+              "lut_cn_std_frames": [_I] + [_P] * 4 + [_I] * 6 + [_P]}
+# unit -> entry point -> argument types (every entry point returns an int)
+_SIGNATURES = {
+    "qc_kernels": {
+        "lut_cn_qc_pass": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+        "lut_vn_qc_pass": [_I] + [_P] * 16 + [_I] * 6 + [_P],
+        "lut_cn_std_pass": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+        "lut_vn_std_pass": [_I] + [_P] * 6 + [_I] + [_P] * 5 + [_I] * 5 + [_P],
+        # the CN block kernel and the VN block witness (wrappers in
+        # block_kernels.py)
+        "lut_cn_block_pass": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+        "lut_vn_block_pass": [_I] + [_P] * 9 + [_I] * 8 + [_P]},
+    "cn_frames_int16": _CN_FRAMES,
+    "cn_frames_float32": _CN_FRAMES,
+}
+
+
+def _unit(unit: str):
+    """The loaded library of `unit`; a first call starts every unit's build
+    and waits for this one's."""
+    lib = _libs.get(unit)
+    if lib is not None:
+        return lib
+    path = start_builds()[unit].wait()
     with _lock:
-        if _lib is None:
-            path = build_kernels()[0]
+        if unit not in _libs:
             lib = ctypes.CDLL(path)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.lut_cn_qc_pass.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
-            lib.lut_cn_qc_pass.restype = i
-            lib.lut_vn_qc_pass.argtypes = ([i] + [p] * 16 + [i] * 6 + [p])
-            lib.lut_vn_qc_pass.restype = i
-            lib.lut_cn_std_pass.argtypes = [i, p, p, p, p, i, i, i, i, p]
-            lib.lut_cn_std_pass.restype = i
-            lib.lut_vn_std_pass.argtypes = ([i] + [p] * 6 + [i] + [p] * 5
-                                            + [i] * 5 + [p])
-            lib.lut_vn_std_pass.restype = i
-            # the per-degree-block pair (wrappers in block_kernels.py)
-            lib.lut_cn_block_pass.argtypes = [i, p, p, p, i, i, i, i, p]
-            lib.lut_cn_block_pass.restype = i
-            lib.lut_vn_block_pass.argtypes = [i] + [p] * 9 + [i] * 8 + [p]
-            lib.lut_vn_block_pass.restype = i
-            # the CN frames (csrc/cn_frames.cuh)
-            lib.lut_cn_width.argtypes = [i]
-            lib.lut_cn_width.restype = i
-            lib.lut_cn_vec.argtypes = [i, i, i, i]
-            lib.lut_cn_vec.restype = i
-            lib.lut_cn_qc_frames.argtypes = [i] + [p] * 6 + [i] * 7 + [p]
-            lib.lut_cn_qc_frames.restype = i
-            lib.lut_cn_std_frames.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
-            lib.lut_cn_std_frames.restype = i
-            _lib = lib
-        return _lib
+            for name, args in _SIGNATURES[unit].items():
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = _I
+            _libs[unit] = lib
+        return _libs[unit]
+
+
+def _load():
+    """The CN block kernel and the table-driven witnesses."""
+    return _unit("qc_kernels")
+
+
+def _load_cn(is_f32: int):
+    """The CN frames of one message storage type."""
+    return _unit("cn_frames_float32" if is_f32 else "cn_frames_int16")
 
 
 def _check(name, t, dtype, shape, device):
@@ -259,7 +297,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
             tables.max_dc, B, stream)
         _raise_on(err, "cn_qc_pass")
     else:
-        fn, aligned = _load().lut_cn_qc_frames, _aligned(m_vn, m_cn)
+        fn, aligned = _load_cn(is_f32).lut_cn_qc_frames, _aligned(m_vn, m_cn)
         for lo, hi, d in tables.cn_runs:
             err = fn(is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
                      tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
@@ -462,8 +500,8 @@ def _cn_std_frames(m_in, out, synd, tables: StdTables, rows) -> None:
     rows[e].  cn_std_pass passes tables.inv_c2v (the VN-grouped arrays);
     lut_ldpc_torch.profile_cn an identity table (the CN-grouped planes, for
     the unfolded route it times)."""
-    fn, stream = _load().lut_cn_std_frames, _stream(m_in.device)
     is_f32, aligned = int(m_in.dtype == torch.float32), _aligned(m_in, out)
+    fn, stream = _load_cn(is_f32).lut_cn_std_frames, _stream(m_in.device)
     B = m_in.shape[1]
     for blk in tables.cn_blocks:
         err = fn(is_f32, m_in.data_ptr(), out.data_ptr(), synd.data_ptr(),

@@ -1,11 +1,16 @@
 """Generated VN kernels: one CUDA translation unit per arithmetic spec.
 
-``generate_source`` writes, for the degree classes of a ``VNParams``, the
-straight-line programs of ``vn_program`` as C++ functions: every step a named
+``generate_source`` writes, for the degree classes of a ``VNParams`` (kinds
+"qc" and "std"), or ``block_source`` for the block programs of a
+per-degree-block loop (kind "block", one class per VN layout block: a
+block's tree, its leave-one-out table and ``use_tot``), the straight-line
+programs of ``vn_program`` as C++ functions: every step a named
 ``float``, every operand sum written out left to right, every emission
 written out (where the thresholds ascend, every comparison first and then a
 bisecting tree of selects over them, each a named ``float``; the plain
-select chain otherwise; ``sym`` and tie handling only where the op has them).
+select chain otherwise, and in a block program of more than
+``BLOCK_TREE_MAX_COMPARES`` comparisons; ``sym`` and tie handling only where
+the op has them).
 The selects are written flat on purpose: as nested conditional expressions
 the compiler turns the bisection into divergent branches with a constant
 load in every arm.
@@ -20,7 +25,10 @@ The kernels around the bodies are ``csrc/vn_frames.cuh``.  ``start_build``
 compiles a unit with nvcc (sm_90a, ``--fmad=false``) into
 ``build/torch_kernels/libvn_<hash>.so``, named by the sha256 of the text, the
 frames and the compiler flags, and reuses the file when it exists;
-``library`` gives the unit already started for a ``VNParams`` or starts it.
+``library`` gives the unit already started for a ``VNParams`` or starts it,
+``block_library`` the same for a set of block programs, and ``block_class``
+the unit and class of one block program (the unit of a decoder's set where
+one holds it, else a unit of its own).
 Several units build side by side: both return at once and
 ``VNLibrary.handle`` waits, loads, and raises if the compiler failed:
 nothing falls back to another kernel.  To force a rebuild delete
@@ -30,25 +38,32 @@ nothing falls back to another kernel.  To force a rebuild delete
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
-import time
 
 import torch
 
-from .nvcc import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, nvcc_path, ptxas_entries
+from .nvcc import (BUILD_DIR, CSRC_DIR, NVCC_FLAGS, Build, digest, nvcc_path,
+                   ptxas_entries)
 from .vn_program import CHA, MSG, build_vn_program
 
-__all__ = ["generate_source", "source_hash", "start_build", "library",
+__all__ = ["generate_source", "block_source", "source_hash", "start_build",
+           "library", "start_block_build", "block_library", "block_class",
            "VNLibrary", "ptxas_by_kernel", "FRAMES_SOURCE", "MAX_CLASS_PARAMS"]
 
 FRAMES_SOURCE = os.path.join(CSRC_DIR, "vn_frames.cuh")
 # floats of one class's parameter slice: it travels as a kernel argument
 MAX_CLASS_PARAMS = 960
 _C_TYPES = {torch.int16: "int16_t", torch.float32: "float"}
-KINDS = ("qc", "std")
+KINDS = ("qc", "std", "block")
+# A block program's ops keep their plain thresholds (about twice the
+# magnitude ones of a spec's symmetric ops).  Written as comparison trees,
+# the degree-17 program of the N=64800 PEG code (96 steps, 1440
+# comparisons) took 255 registers and spilled on an H100; written as select
+# chains it did not.  A program with at most this many comparisons keeps the
+# trees, which were the faster form at the lower degrees (degree 9: 600
+# comparisons, 126 registers).
+BLOCK_TREE_MAX_COMPARES = 1000
 
 
 # ---------------------------------------------------------------------------
@@ -68,24 +83,31 @@ def _select_tree(name, lines, lev, lo, hi):
     return var
 
 
-def _step_lines(name, op, operands, base):
+def _sum(terms):
+    total = terms[0]
+    for x in terms[1:]:
+        total = f"({total} + {x})"
+    return total
+
+
+def _step_lines(name, op, operands, base, total=None, tree=True):
     """C++ statements that define `name` as the emission of `op` for the sum
-    of `operands` (names of floats); parameter offsets relative to `base`."""
+    of `operands` (names of floats), or for the expression `total` where one
+    is given; parameter offsets relative to `base`.  Ascending thresholds
+    are bisected by a tree of selects where `tree`, else (and for unsorted
+    thresholds) the select chain is written out."""
     o = op.off - base
     thr = lambda t: f"P.v[{o + t}]"
     lev = lambda t: f"P.v[{o + op.nthr + t}]"
     s = f"{name}_s"
-    total = operands[0]
-    for x in operands[1:]:
-        total = f"({total} + {x})"
-    lines = [f"const float {s} = {total};"]
+    lines = [f"const float {s} = {total or _sum(operands)};"]
     x = s
     if op.sym:
         x = f"{name}_x"
         lines.append(f"const float {x} = fabsf({s});")
     stages = ["e"] + (["g"] if op.sym else []) + (["t"] if op.has_tie else [])
     var = {st: name if st == stages[-1] else f"{name}_{st}" for st in stages}
-    if op.sorted_thr or op.nthr == 0:
+    if (op.sorted_thr and tree) or op.nthr == 0:
         lines += [f"const bool {name}_c{t} = {x} >= {thr(t)};" for t in range(op.nthr)]
         root = _select_tree(name, lines, lev, 0, op.nthr)
         lines.append(f"const float {var['e']} = {root};")
@@ -102,19 +124,20 @@ def _step_lines(name, op, operands, base):
     return lines
 
 
-def _class_slice(cls):
-    """(offset, length) of the class's parameters in a parameter row."""
-    if not cls.ops:
+def _class_slice(ops):
+    """(offset, length) of the ops' parameters in a parameter row."""
+    if not ops:
         return 0, 0
-    lo = min(op.off for op in cls.ops)
-    hi = max(op.off + 2 * op.nthr + 3 for op in cls.ops)
+    lo = min(op.off for op in ops)
+    hi = max(op.off + 2 * op.nthr + 3 for op in ops)
     return lo, hi - lo
 
 
-def _class_source(c, cls):
-    prog = build_vn_program(cls)
+def _class_source(c, prog, kind):
     d = prog.degree
-    base, length = _class_slice(cls)
+    tree = (kind != "block" or sum(prog.ops[st.op].nthr for st in prog.steps)
+            <= BLOCK_TREE_MAX_COMPARES)
+    base, length = _class_slice(prog.ops)
     if length > MAX_CLASS_PARAMS:
         raise ValueError(f"VN class of degree {d}: {length} parameters > "
                          f"{MAX_CLASS_PARAMS} (a kernel argument holds them)")
@@ -126,13 +149,18 @@ def _class_source(c, cls):
 
     args = ", ".join([f"float m{k}" for k in range(d)] + ["float ch"]
                      + [f"float& o{k}" for k in range(d)])
-    out = [f"// class {c}: degree {d}, {len(cls.ops)} ops, {len(prog.steps)} steps",
+    out = [f"// class {c}: degree {d}, {len(prog.ops)} ops, {len(prog.steps)} steps",
            f"struct VnPrm{c} {{ float v[{max(length, 1)}]; }};",
            f"LUT_VN_FN void vn_class_{c}(const VnPrm{c}& P, {args}) {{"]
+    if any(st.minus for st in prog.steps):
+        out.append(f"  const float tot = {_sum([f'm{k}' for k in range(d)])};")
     for st in prog.steps:
         operands = [ref(r) for r in st.operands]
-        out.append(f"  // {st.name}: op {st.op} of ({', '.join(operands)})")
-        out += ["  " + ln for ln in _step_lines(st.name, prog.ops[st.op], operands, base)]
+        total = f"(tot - {ref(st.minus)})" if st.minus else None
+        out.append(f"  // {st.name}: op {st.op} of "
+                   + (total if total else f"({', '.join(operands)})"))
+        out += ["  " + ln for ln in _step_lines(st.name, prog.ops[st.op], operands,
+                                                base, total, tree)]
     out += [f"  o{k} = {ref(r)};" for k, r in enumerate(prog.outputs)]
     out.append("  (void)P;")
     out += [f"  (void)m{k};" for k in range(d)]
@@ -198,18 +226,17 @@ extern "C" int lut_vn_host_eval(int cls, const float* prm_row, const float* msg,
 """
 
 
-def generate_source(params, dtype, kind: str) -> str:
-    """The translation unit of the first `params.kernel_classes` classes of
-    `params` for messages stored as `dtype` (torch.int16 or torch.float32)
-    and the frames of `kind` ("qc": circulant rows, "std": slot planes)."""
+def _unit_source(programs, dtype, kind: str) -> str:
+    """The translation unit of `programs` (one VNProgram per class) for
+    messages stored as `dtype` (torch.int16 or torch.float32) and the frames
+    of `kind`."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r}: expected one of {KINDS}")
-    classes = params.classes[: params.kernel_classes]
     out = [_PRELUDE]
-    for c, cls in enumerate(classes):
-        out += _class_source(c, cls)
+    for c, prog in enumerate(programs):
+        out += _class_source(c, prog, kind)
     out += ["#define LUT_VN_FOR_CLASSES(X) "
-            + " ".join(f"X({c})" for c in range(len(classes))),
+            + " ".join(f"X({c})" for c in range(len(programs))),
             f"typedef {_C_TYPES[dtype]} LutVnT;  // message storage type",
             f"#define LUT_VN_{kind.upper()} 1",
             "",
@@ -220,15 +247,29 @@ def generate_source(params, dtype, kind: str) -> str:
     return "\n".join(out) + "\n"
 
 
+def generate_source(params, dtype, kind: str) -> str:
+    """The translation unit of the first `params.kernel_classes` classes of
+    `params` for messages stored as `dtype` and the frames of `kind` ("qc":
+    circulant rows, "std": slot planes)."""
+    if kind == "block":
+        raise ValueError("a block unit is made of block programs: block_source")
+    return _unit_source([build_vn_program(c)
+                         for c in params.classes[: params.kernel_classes]],
+                        dtype, kind)
+
+
+def block_source(progs, dtype) -> str:
+    """The translation unit of the block programs `progs`
+    (``block_kernels.VNBlockProgram``, one class each, in order) for
+    messages stored as `dtype`, in the block frames."""
+    return _unit_source([p.program for p in progs], dtype, "block")
+
+
 def source_hash(text: str) -> str:
     """sha256 over the generated text, the frames and the compiler flags."""
-    h = hashlib.sha256()
     with open(FRAMES_SOURCE, "rb") as f:
         frames = f.read()
-    for part in (text.encode(), frames, " ".join(NVCC_FLAGS).encode()):
-        h.update(len(part).to_bytes(8, "little"))
-        h.update(part)
-    return h.hexdigest()
+    return digest((text.encode(), frames, " ".join(NVCC_FLAGS).encode()))
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +279,8 @@ def ptxas_by_kernel(report: str) -> list:
     """Per kernel instantiation of a unit's ptxas -v report: dict(kernel,
     cls, vec, registers, stack, spill_stores, spill_loads)."""
     out = []
-    for r in ptxas_entries(report, r"(vn_(?:qc|std)_class_kernel)I[sf]Li(\d+)ELi(\d+)E"):
+    for r in ptxas_entries(report,
+                           r"(vn_(?:qc|std|block)_class_kernel)I[sf]Li(\d+)ELi(\d+)E"):
         kernel, cls, vec = r.pop("groups")
         out.append(dict(kernel=kernel, cls=int(cls), vec=int(vec), **r))
     return sorted(out, key=lambda r: (r["kernel"], r["cls"], r["vec"]))
@@ -252,45 +294,31 @@ class VNLibrary:
     def __init__(self, text: str, force: bool = False):
         self.text = text
         self.hash = source_hash(text)
-        self.path = os.path.join(BUILD_DIR, f"libvn_{self.hash[:16]}.so")
+        path = os.path.join(BUILD_DIR, f"libvn_{self.hash[:16]}.so")
         self.source_path = os.path.join(BUILD_DIR, f"vn_{self.hash[:16]}.cu")
-        self.seconds, self.report = 0.0, ""
-        self._lib = self._build = self._rc = None
-        self._lock = threading.Lock()
-        if force or not os.path.exists(self.path):
+        if force or not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             with open(self.source_path, "w") as f:
                 f.write(text)
-            tmp = f"{self.path}.{os.getpid()}.tmp"
-            proc = subprocess.Popen(
-                [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-                 self.source_path],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            # a thread waits on the compiler, so that `seconds` is its own time
-            self._build = threading.Thread(target=self._wait, args=(proc, tmp),
-                                           daemon=True)
-            self._build.start()
+        self._build = Build(path, self.source_path, force=force, nvcc=nvcc_path)
+        self.path = path
+        self._lib = None
+        self._lock = threading.Lock()
 
-    def _wait(self, proc, tmp):
-        t0 = time.perf_counter()
-        _, self.report = proc.communicate()
-        self.seconds = time.perf_counter() - t0
-        self._rc = proc.returncode
-        if self._rc == 0:
-            os.replace(tmp, self.path)
+    @property
+    def seconds(self) -> float:
+        return self._build.seconds
+
+    @property
+    def report(self) -> str:
+        return self._build.report
 
     def handle(self):
         """The loaded library; waits for the compiler and raises if it
         failed."""
         with self._lock:
-            if self._build is not None:
-                self._build.join()
-                self._build = None
-                if self._rc != 0:
-                    raise RuntimeError(f"nvcc failed ({self._rc}) on "
-                                       f"{self.source_path}:\n{self.report}")
             if self._lib is None:
-                lib = ctypes.CDLL(self.path)
+                lib = ctypes.CDLL(self._build.wait())
                 p, i = ctypes.c_void_p, ctypes.c_int
                 lib.lut_vn_vec.argtypes = [i, i, i]
                 lib.lut_vn_vec.restype = i
@@ -300,6 +328,9 @@ class VNLibrary:
                 if hasattr(lib, "lut_vn_std_class"):
                     lib.lut_vn_std_class.argtypes = [i] + [p] * 5 + [i] * 6 + [p, p]
                     lib.lut_vn_std_class.restype = i
+                if hasattr(lib, "lut_vn_block_class"):
+                    lib.lut_vn_block_class.argtypes = [i] + [p] * 6 + [i] * 6 + [p, p]
+                    lib.lut_vn_block_class.restype = i
                 self._lib = lib
             return self._lib
 
@@ -324,3 +355,33 @@ def library(params, dtype, kind: str) -> VNLibrary:
     the result waits for the build and loads it."""
     lib = _libs.get((params.tree_key, dtype, kind))
     return lib if lib is not None else start_build(params, dtype, kind)
+
+
+# (program key, dtype) -> (VNLibrary, class) of every block program in a unit
+_block_classes: dict = {}
+
+
+def start_block_build(progs, dtype, force: bool = False) -> VNLibrary:
+    """The unit of the block programs `progs` (class c: progs[c]), its
+    compiler started if the library file is missing (or `force`); returns
+    without waiting."""
+    key = (tuple(p.key for p in progs), dtype, "block")
+    with _libs_lock:
+        if force or key not in _libs:
+            _libs[key] = VNLibrary(block_source(progs, dtype), force)
+            for c, p in enumerate(progs):
+                _block_classes[p.key, dtype] = (_libs[key], c)
+        return _libs[key]
+
+
+def block_library(progs, dtype) -> VNLibrary:
+    """The unit of `progs`, its build started if need be."""
+    lib = _libs.get((tuple(p.key for p in progs), dtype, "block"))
+    return lib if lib is not None else start_block_build(progs, dtype)
+
+
+def block_class(prog, dtype) -> tuple:
+    """(VNLibrary, class index) of the block program `prog`: the unit that
+    holds it, or a unit of `prog` alone, started here."""
+    found = _block_classes.get((prog.key, dtype))
+    return found if found is not None else (start_block_build([prog], dtype), 0)

@@ -1,27 +1,37 @@
-"""The VN update of one degree class as a straight-line program.
+"""The VN update of one degree class or block as a straight-line program.
 
-``build_vn_program`` turns a ``VNClass`` (``params.py``) into the list of op
-evaluations that the leave-one-out update needs, decided once on the host:
+``build_block_program`` turns a VN tree (its ops, ``params.VNOp`` records),
+a (d, d) leave-one-out table and the ``use_tot`` flag into the list of op
+evaluations that the d outputs need, decided once on the host.  Output i is
+the tree on the leaves of row i of the table: message leaf position x takes
+message ``loo[i, x]``, the channel is the last leaf; under ``use_tot`` op 0
+sums (m_0 + ... + m_{d-1}) - m_i instead of its operands (what
+lut_ldpc_tpu/decoder/pallas_kernels.py::_vn_kernel computes).  The outputs
+are built in the order d - 1, 0, 1, ..., d - 2, and two steps with the same
+op and the same operands are one step.
 
-- the identity sweep: the class tree bottom-up on the leaves
-  (m_0 .. m_{d-2}, channel); its root is output d - 1;
-- the shift-by-one sweep: the same tree on (m_1 .. m_{d-1}, channel); its
-  root is output 0;
-- for each inner output i only the ops whose message span straddles i
-  (lo < i <= hi), evaluated on the leave-one-out leaves (position j takes
-  m_j for j < i and m_{j+1} otherwise); a sub-tree wholly below i comes from
-  the identity sweep, one wholly at or above i from the shifted sweep.
+``build_vn_program`` is the program of a ``VNClass`` (``params.py``): the
+standard table ``leave_one_out_idx(d + 1, d)``, where position j of output i
+takes m_j for j < i and m_{j+1} otherwise.  There the merging is the
+shared-sweep schedule of
+lut_ldpc_tpu/decoder/qc_kernels.py::_vn_class_compute, value for value:
 
-This is the shared-sweep schedule of
-lut_ldpc_tpu/decoder/qc_kernels.py::_vn_class_compute, value for value: every
+- output d - 1 is the identity sweep, the tree bottom-up on
+  (m_0 .. m_{d-2}, channel);
+- output 0 is the shift-by-one sweep, on (m_1 .. m_{d-1}, channel);
+- an inner output i re-evaluates only the ops whose message span straddles
+  i (lo < i <= hi): a sub-tree wholly below i reads the leaves of the
+  identity sweep, one wholly at or above i those of the shifted sweep, so
+  their steps merge with those sweeps' (degree 17: 96 steps, not 272).
+
+Any other table is computed exactly, with the merges its rows allow.  Every
 step sums its operands left to right in float32 in the tree's operand order
 and emits through the op's select chain.  Degree 1 has no message leaf: its
 one output is the channel value (or the root of a channel-only tree).
 
 A program is plain data: steps name their operands as message leaves, the
-channel or earlier steps.  Two steps with the same op and operands are one
-step.  ``vn_codegen`` writes a program out as CUDA / C++ source;
-``eval_vn_program`` runs it on tensors (any device) and is the plain
+channel or earlier steps.  ``vn_codegen`` writes a program out as CUDA / C++
+source; ``eval_vn_program`` runs it on tensors (any device) and is the plain
 reference of that source.
 """
 
@@ -29,9 +39,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-__all__ = ["Step", "VNProgram", "build_vn_program", "eval_vn_program"]
+from .layout import leave_one_out_idx
+
+__all__ = ["Step", "VNProgram", "build_vn_program", "build_block_program",
+           "eval_vn_program"]
 
 # an operand: ("m", k) message k of the node, ("c",) its channel value,
 # ("s", j) the value of step j
@@ -40,72 +54,56 @@ MSG, CHA, STEP = "m", "c", "s"
 
 @dataclass(frozen=True)
 class Step:
-    name: str        # "i3" / "s3": op 3 of the identity / shifted sweep;
-                     # "t5_3": op 3 re-evaluated for output 5
+    name: str        # "i3" / "s3": op 3 for output d - 1 / 0 (the identity /
+                     # shifted sweep); "t5_3": op 3 evaluated for output 5
     op: int          # index into VNProgram.ops: the emission parameters
     operands: tuple  # operand references, in the tree's operand order
+    # ("m", i): the sum is (m_0 + ... + m_{d-1}) - m_i (op 0 under use_tot);
+    # the operands then only name the tie's last operand
+    minus: tuple | None = None
 
 
 @dataclass(frozen=True)
 class VNProgram:
     degree: int
-    ops: tuple       # the class's VNOp records
+    ops: tuple       # the tree's VNOp records
     steps: tuple
     outputs: tuple   # operand reference of each of the d outputs
 
 
-def build_vn_program(cls) -> VNProgram:
-    """The straight-line leave-one-out program of the VNClass `cls`."""
-    d, ops = cls.degree, cls.ops
-    if cls.num_inputs != d:
-        raise ValueError("VN tree leaves != degree (d-1 messages + channel)")
+def build_block_program(degree: int, ops, loo, use_tot: bool = False) -> VNProgram:
+    """The straight-line program of the tree `ops` with `degree` leaves (d - 1
+    messages, then the channel) for the d leave-one-out outputs of the
+    (d, d) table `loo` (column d - 1, the channel's, is not read)."""
+    d, ops = int(degree), tuple(ops)
+    loo = np.asarray(loo)
     steps, index = [], {}
 
-    def step(name, k, operands):
-        key = (k, operands)
+    def step(name, k, operands, minus):
+        key = (k, operands, minus)
         if key not in index:
             index[key] = len(steps)
-            steps.append(Step(name, k, operands))
+            steps.append(Step(name, k, operands, minus))
         return (STEP, index[key])
 
-    def sweep(tag, shift):
-        vals = [(MSG, j + shift) for j in range(d - 1)] + [(CHA,)]
+    outputs = [None] * d
+    for i in [d - 1] + list(range(d - 1)):
+        tag = "i" if i == d - 1 else ("s" if i == 0 else f"t{i}_")
+        vals = [(MSG, int(loo[i, x])) for x in range(d - 1)] + [(CHA,)]
         for k, op in enumerate(ops):
-            vals.append(step(f"{tag}{k}", k, tuple(vals[x] for x in op.operands)))
-        return vals[d:]
+            minus = (MSG, i) if use_tot and k == 0 else None
+            vals.append(step(f"{tag}{k}", k, tuple(vals[x] for x in op.operands),
+                             minus))
+        outputs[i] = vals[-1]
+    return VNProgram(degree=d, ops=ops, steps=tuple(steps), outputs=tuple(outputs))
 
-    idv = sweep("i", 0)
-    s1v = sweep("s", 1) if d >= 2 else idv
-    outputs = []
-    for i in range(d):
-        if not ops:
-            outputs.append((CHA,))
-        elif i == d - 1:
-            outputs.append(idv[-1])
-        elif i == 0:
-            outputs.append(s1v[-1])
-        else:
-            done = {}
 
-            def val(x, i=i, done=done):
-                if x < d - 1:
-                    return (MSG, x if x < i else x + 1)
-                if x == d - 1:
-                    return (CHA,)
-                k = x - d
-                lo, hi = ops[k].span
-                if lo < 0 or hi < i:
-                    return idv[k]
-                if lo >= i:
-                    return s1v[k]
-                if k not in done:
-                    done[k] = step(f"t{i}_{k}", k,
-                                   tuple(val(y) for y in ops[k].operands))
-                return done[k]
-
-            outputs.append(val(d + len(ops) - 1))
-    return VNProgram(degree=d, ops=tuple(ops), steps=tuple(steps),
-                     outputs=tuple(outputs))
+def build_vn_program(cls) -> VNProgram:
+    """The straight-line leave-one-out program of the VNClass `cls`."""
+    d = cls.degree
+    if cls.num_inputs != d:
+        raise ValueError("VN tree leaves != degree (d-1 messages + channel)")
+    return build_block_program(d, cls.ops, leave_one_out_idx(d + 1, d))
 
 
 def _emit(s, last, prm, op):
@@ -135,7 +133,7 @@ def eval_vn_program(program: VNProgram, msg, ch, prm):
     ``qc_kernels._vn_compute`` returns them."""
     msg = msg.to(torch.float32)
     ch = ch.to(torch.float32)
-    vals = []
+    vals, tot = [], None
 
     def get(ref):
         if ref[0] == MSG:
@@ -144,9 +142,16 @@ def eval_vn_program(program: VNProgram, msg, ch, prm):
 
     for st in program.steps:
         xs = [get(r) for r in st.operands]
-        s = xs[0]
-        for x in xs[1:]:
-            s = s + x
+        if st.minus is not None:
+            if tot is None:
+                tot = msg[0]
+                for j in range(1, program.degree):
+                    tot = tot + msg[j]
+            s = tot - get(st.minus)
+        else:
+            s = xs[0]
+            for x in xs[1:]:
+                s = s + x
         vals.append(_emit(s, xs[-1], prm, program.ops[st.op]))
     outs = [get(r) for r in program.outputs]
     neg0 = outs[0] < 0

@@ -128,7 +128,7 @@ def instantiations(dec, B: int, aligned: int = 1) -> list:
     degrees = ({d for _, _, d in dec.tables.cn_runs} if qc
                else {b.degree for b in dec.tables.cn_blocks})
     is_f32 = int(dec.dtype == torch.float32)
-    lib = qk._load()
+    lib = qk._load_cn(is_f32)
     out = []
     for d in sorted(degrees):
         out.append((f"cn_{'qc' if qc else 'std'}_frames_kernel",
@@ -174,8 +174,10 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"# card {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    _, secs, report = qk.build_kernels(force=True)
-    print(f"# {qk.KERNEL_SOURCE} built in {secs:.1f}s")
+    builds = qk.build_kernels(force=True)
+    print("# kernel library built side by side: " + ", ".join(
+        f"{unit} {b.seconds:.1f}s" for unit, b in builds.items()))
+    report = "".join(b.report for b in builds.values())
     dev = torch.device("cuda")
     for code in args.code:
         profile(code, args, report, dev)

@@ -1,10 +1,12 @@
 """Where one decode's time goes on the card.
 
     python -m lut_ldpc_torch.profile_decode
-        [--code headline|peg|qc|dvbs2|dvbs2-gather] [--reps 5]
+        [--code headline|headline-blocks|peg|qc|dvbs2|dvbs2-gather] [--reps 5]
 
 Builds the codec and the ``make_staged_decoder`` decoder of the chosen
-configuration (``headline``: lut_ldpc_torch.bench; the others:
+configuration (``headline``: lut_ldpc_torch.bench; ``headline-blocks``: the
+same batch through the int16 prefix on the per-degree-block loop,
+``ArithLUTDecoder(loop="blocks")``, as phase 11 of chip_smoke.py; the others:
 lut_ldpc_torch.bench_n64800), warms up, then
 
 - times --reps decodes on the host clock (synchronized), with the peak
@@ -12,7 +14,8 @@ lut_ldpc_torch.bench_n64800), warms up, then
 - traces one decode with ``torch.profiler`` and prints device time by
   kernel name (the CN/VN kernels, the rest), the launches and time of the
   gather kernels (``index_select`` and the like), the busy total, the idle share of the span from the first to
-  the last device operation, and for a phantom-completed graph the device
+  the last device operation, the pass kernels' share of it against the rest
+  (torch glue), and for a phantom-completed graph the device
   time of the phantom row repairs (the ``lut::phantom_rows`` ranges of
   ``ArithLUTDecoder._vn``);
 - prints the kernel launches of that decode per kernel and dtype.
@@ -24,21 +27,28 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
+
+# the kernels of the CN and VN passes (CN frames, generated VN kernels, the
+# block pair, the table-driven witnesses), by their names in a trace
+PASS_KERNEL = re.compile(r"\b(?:cn|vn)_(?:qc|std|block)_(?:frames_|class_)?kernel\b")
 
 
 def build(code: str, dev):
     import torch
 
     from . import bench, bench_n64800 as b64
-    from .decoder import make_staged_decoder
+    from .decoder import ArithLUTDecoder, make_staged_decoder
 
-    if code == "headline":
+    if code.startswith("headline"):
         codec = bench.build_codec()
         B, snr = bench.BATCH, 2.0
         dec = make_staged_decoder(codec, dev)
+        if code == "headline-blocks":
+            dec = ArithLUTDecoder(codec, dev, spec=dec.pre.spec, loop="blocks")
     else:
         os.environ.setdefault("LUT_DECODE_MEM_BUDGET", str(b64.MEM_BUDGET))
         codec = b64.build_codec(code)
@@ -71,7 +81,8 @@ def device_breakdown(prof):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--code", default="peg", choices=["headline", "peg", "qc", "dvbs2", "dvbs2-gather"])
+    ap.add_argument("--code", default="peg", choices=["headline", "headline-blocks", "peg",
+                                                      "qc", "dvbs2", "dvbs2-gather"])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
 
@@ -114,6 +125,9 @@ def main(argv=None):
     print(f"# launches: { {f'{n}/{dt}': c for (n, dt), c in qk.LAUNCHES_BY_DTYPE.items() if c} }")
     print(f"# device busy {busy:.3f} ms over a span of {span:.3f} ms: idle "
           f"{100 * (1 - busy / span):.1f} %")
+    passes = sum(ms for name, _, ms in rows if PASS_KERNEL.search(name))
+    print(f"# CN and VN pass kernels {passes:.3f} ms, everything else (torch glue) "
+          f"{busy - passes:.3f} ms ({100 * (busy - passes) / busy:.1f} % of busy)")
     for ev in prof.key_averages():
         if ev.key == "lut::phantom_rows" and ev.device_type.name != "CUDA":
             us = getattr(ev, "device_time_total", None)

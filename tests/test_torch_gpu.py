@@ -143,7 +143,7 @@ def test_cn_frames_match_table_driven_and_plain(request, which, dtype, B):
     name = f"cn_{which}_pass"
     per_pass = len(tab.cn_runs) if which == "qc" else len(tab.cn_blocks)
     is_f32 = int(dtype == np.float32)
-    vec = qk._load().lut_cn_vec(is_f32, int(tab.max_dc), B, 1)
+    vec = qk._load_cn(is_f32).lut_cn_vec(is_f32, int(tab.max_dc), B, 1)
     assert vec == ((4 if is_f32 else 8) if B % 8 == 0 else 1)
     n0, g0 = qk.LAUNCHES[name], qk.CLASS_LAUNCHES[name]
     got, synd = cn(m, tab)
@@ -237,20 +237,26 @@ def test_mixed_kernel_path_matches_twin_path(codec_peg):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("B", [300, 297])
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
-def test_block_kernels_match_plain_versions(codec_peg, dtype):
+def test_block_kernels_match_plain_versions(codec_peg, dtype, B):
     """cn_block_pass / vn_block_pass on every degree block of the PEG codec
-    (variable degrees 2, 3, 9, 17), B not a multiple of 256."""
+    (variable degrees 2, 3, 9, 17), B not a multiple of 256 (297: one frame a
+    thread): the CN block kernel against its plain version, the generated VN
+    block kernel against the table-driven one (generic=True) and the plain
+    version, one class launch a call; then vn_blocks_pass, the block loop's
+    VN pass over all blocks with the c2v gather folded in, against its plain
+    version."""
     from lut_ldpc_torch.decoder import block_kernels as bk
 
     spec = build_arith_prefix_spec(codec_peg, dtype=dtype)
     dec = ArithLUTDecoder(codec_peg, "cuda", spec=spec, loop="blocks")
     assert dec.loop == "blocks"
-    it, B = spec.num_iters // 2, 300
+    it = spec.num_iters // 2
     rng = np.random.default_rng(0)
     table = torch.as_tensor(root_levels(spec, it), device="cuda")
     leaf = torch.as_tensor(np.asarray(spec.leaf_cha), device="cuda").to(table.dtype)
-    n0 = dict(qk.LAUNCHES)
+    n0, c0 = dict(qk.LAUNCHES), dict(qk.CLASS_LAUNCHES)
     for blk in dec.layout.cn_blocks:
         d, n, nr = blk.degree, blk.n_pad, blk.num_nodes
         m3 = table[torch.as_tensor(rng.integers(0, len(table), (d, n, B)), device="cuda")]
@@ -262,11 +268,28 @@ def test_block_kernels_match_plain_versions(codec_peg, dtype):
         m3 = table[torch.as_tensor(rng.integers(0, len(table), (d, n, B)), device="cuda")]
         cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (n, B)), device="cuda")]
         out, bits, unan = bk.run_vn_block(m3, cha, prog, it, nr)
-        r_out, r_bits, r_unan = bk.run_vn_block_ref(m3, cha, prog, it, nr)
-        assert torch.equal(out[:, :nr], r_out[:, :nr])
-        assert torch.equal(bits[:nr], r_bits[:nr]) and torch.equal(unan, r_unan)
-    assert qk.LAUNCHES["cn_block_pass"] == n0["cn_block_pass"] + len(dec.layout.cn_blocks)
-    assert qk.LAUNCHES["vn_block_pass"] == n0["vn_block_pass"] + len(dec.layout.vn_blocks)
+        for r_out, r_bits, r_unan in (bk.run_vn_block(m3, cha, prog, it, nr, generic=True),
+                                      bk.run_vn_block_ref(m3, cha, prog, it, nr)):
+            assert torch.equal(out[:, :nr], r_out[:, :nr])
+            assert torch.equal(bits[:nr], r_bits[:nr]) and torch.equal(unan, r_unan)
+    ncn, nvn = len(dec.layout.cn_blocks), len(dec.layout.vn_blocks)
+    assert qk.LAUNCHES["cn_block_pass"] == n0["cn_block_pass"] + ncn
+    assert qk.LAUNCHES["vn_block_pass"] == n0["vn_block_pass"] + 2 * nvn
+    assert qk.CLASS_LAUNCHES["cn_block_pass"] == c0["cn_block_pass"] + ncn
+    # the witness adds no class launch
+    assert qk.CLASS_LAUNCHES["vn_block_pass"] == c0["vn_block_pass"] + nvn
+
+    tab = dec.tables
+    m_cn = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_cn, B)),
+                                 device="cuda")]
+    cha = leaf[torch.as_tensor(rng.integers(0, len(leaf), (tab.nvar_pad, B)),
+                               device="cuda")]
+    out, bits, unan = bk.vn_blocks_pass(m_cn, cha, it, dec._progs, tab)
+    r_out, r_bits, r_unan = bk.vn_blocks_pass_ref(m_cn, cha, it, dec._progs, tab)
+    assert torch.equal(out[tab.vn_real], r_out[tab.vn_real])
+    assert torch.equal(bits[tab.node_real], r_bits[tab.node_real])
+    assert torch.equal(unan, r_unan)
+    assert qk.CLASS_LAUNCHES["vn_block_pass"] == c0["vn_block_pass"] + 2 * nvn
 
 
 def _toy_dvbs2():
@@ -295,7 +318,10 @@ def test_phantom_decode_matches_twin_path_and_golden(loop):
     lc_d, lm_d = torch.as_tensor(lc, device="cuda"), torch.as_tensor(lm, device="cuda")
     dec = ArithLUTDecoder(codec, "cuda", loop=loop)
     assert dec.loop == ("qc" if loop == "auto" else "blocks") and len(dec._ph) == 1
+    qk.reset_launches()
     a = dec(lc_d, lm_d)
+    vn = "vn_qc_pass" if loop == "auto" else "vn_block_pass"  # the generated kernels
+    assert qk.LAUNCHES[vn] >= 1 and qk.CLASS_LAUNCHES[vn] >= qk.LAUNCHES[vn]
     b = ArithLUTDecoder(codec, "cuda", loop=loop, kernels=False)(lc_d, lm_d)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
