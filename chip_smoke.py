@@ -15,6 +15,7 @@ Phases (each prints; any failure raises and exits non-zero):
     seconds and what ptxas reports for each kernel; the CN frames that the
     QC N=64800 decode would launch (check degrees 8 and 9) must have no
     stack frame and no spill, as those of every decode below, and so must
+    the CN frames' widest bucket (width 40: checks of degree 17 to 40) and
     every generated block kernel;
  3. the QC kernels at the headline shapes (N=10000 (3,6) QC code, Z=1000,
     B=8192), in the int16 and the float32 spec: the CN frames and the
@@ -71,17 +72,45 @@ Phases (each prints; any failure raises and exits non-zero):
     std kernels, 512 of the same frames carried through the column
     permutation: same ok and iters, same bits after un-permuting;
 15. the golden-model frames of the PEG and the DVB-S2 decode from the
-    workers.
-Every main-path decode (phases 4, 8, 11, 13, 14) must have run each CN and
-VN pass on the CN frames, the CN block kernel or the generated VN kernels,
-none on a table-driven witness.  Then a JSON line of per-kernel results
+    workers (read after phases 16, 18 and 19, which run while the workers
+    finish; phase 17 runs last, on a host without workers);
+16. the float BP baselines (lut_ldpc_torch.decoder.bp, torch ops) at the
+    headline code, B=8192, 2 dB, 50 iterations: spa, minsum, nms, oms and
+    qllr, the first 256 frames against the same decoder on the CPU (equal
+    bits, ok and iters; spa ok and iters on 99 % of the frames), Mbit/s and
+    peak memory;
+17. the simulator's step at the headline configuration (BERSim, zero
+    codeword, B=8192, 2 dB, the HybridLUTDecoder of phase 4), after the
+    workers have ended: the decode alone on one of its batches, then 6
+    batches after a warm-up, frames/s and Mbit/s beside the decode-only
+    figure of this phase and of phase 6, the counters, the kernel launches
+    of that run (none on a witness), the step split into generate /
+    quantize / decode / count;
+18. the N=1000 PEG (3,6) waterfall of examples/ber_waterfall.py (q4
+    min-LUT on the std kernels, spa, nms), every point's frame errors
+    against the TPU-era docs/waterfall/{lut_q4,spa,nms}.npz (two-sided
+    two-proportion test, alpha = 1e-3), the LUT run's launches; then the
+    LUT decoder's CN frames and generated VN kernel at B=256 and 253
+    against their plain versions and table-driven kernels, and one batch
+    on the kernels against the twin path;
+19. the ber_sim CLI of the port on params/ber.ini.regular.example (results
+    in a temporary directory): its files under the JAX CLI's names, read
+    back, each point against docs/waterfall/lut_10gbaset_q4q3.npz, every
+    pass on the CN frames and the generated VN kernel; then the kernels of
+    the decoder of the codec it saved at B=128 and 125 as in phase 18 (the
+    CN frames against the plain version only: no table-driven CN kernel
+    takes checks of degree 33).
+Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19) must have run each
+CN and VN pass on the CN frames, the CN block kernel or the generated VN
+kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
 (time, plain twin's time, the card's bound for the same work; `launches`
 counts the wrapper's calls on the main path (one a pass; one a degree block
 for `cn_block_pass`), `class_launches` the kernel launches these made, one
 a degree class, block or run of block-rows; the rows of the CN frames and
 of the generated VN kernels also carry `witness_ms`, the table-driven
-kernel's time, and `cn_std_pass` `unfolded_ms`), the card, and last the
-device line.
+kernel's time, and `cn_std_pass` `unfolded_ms`; the QC pair's
+`sim_launches` are the passes of phase 17's simulator run, the std pair's
+those of phase 18's LUT run), the card, and last the device line.
 """
 
 import json
@@ -183,13 +212,13 @@ def unit_summary(dec, B):
     return "classes " + "; ".join(parts) + f"; unit built in {lib.seconds:.1f}s"
 
 
-def vn_check(dec, it, m_c2v, cha, what, reps, plain_reps):
+def vn_check(dec, it, m_c2v, cha, what, reps, plain_reps, hold_speed=True):
     """The generated VN kernel of `dec` at iteration `it` on (m_c2v, cha) and
     on the same input cut to an odd width (3 frames fewer: one frame a
     thread, unaligned rows): equal to the table-driven kernel and to the
-    plain version (lut_ldpc_torch.profile_vn.check_vn raises otherwise), and
-    faster than the table-driven kernel.  Logs one line per width; returns
-    the full-width result."""
+    plain version (lut_ldpc_torch.profile_vn.check_vn raises otherwise), and,
+    with hold_speed, faster than the table-driven kernel.  Logs one line per
+    width; returns the full-width result."""
     from lut_ldpc_torch import profile_vn as pv
 
     B = m_c2v.shape[1]
@@ -201,7 +230,7 @@ def vn_check(dec, it, m_c2v, cha, what, reps, plain_reps):
         else:
             r = pv.check_vn(dec, it, m_c2v[:, :width].contiguous(),
                             cha[:, :width].contiguous(), reps=max(2, reps // 4))
-        if r["ms"] >= r["generic_ms"]:
+        if hold_speed and r["ms"] >= r["generic_ms"]:
             raise AssertionError(f"{what}: generated {r['name']} ({r['ms']:.3f} ms) is not "
                                  f"faster than the table-driven kernel "
                                  f"({r['generic_ms']:.3f} ms) at B={width}")
@@ -240,8 +269,11 @@ def cn_check(dec, it, B, what, reps, plain_reps, seed=1):
         x = m_vn if width == B else m_vn[:, :width].contiguous()
         r = pc.check_cn(dec, x, reps=reps if width == B else max(2, reps // 4),
                         plain_reps=plain_reps if width == B else 0)
-        log(f"# {what} B={width}: {r['name']} frames equal to the table-driven kernel and "
-            f"the plain version; frames {r['ms']:.4f} ms, table-driven {r['witness_ms']:.4f} ms"
+        log(f"# {what} B={width}: {r['name']} frames equal to "
+            + (f"the table-driven kernel and the plain version; frames {r['ms']:.4f} ms, "
+               f"table-driven {r['witness_ms']:.4f} ms" if r["witness_ms"] is not None else
+               f"the plain version (no table-driven kernel above check degree "
+               f"{qk.MAX_DEGREE}); frames {r['ms']:.4f} ms")
             + (f", unfolded route (two gathers + frames) {r['unfolded_ms']:.4f} ms"
                if r["unfolded_ms"] else "")
             + (f", plain {r['plain_ms']:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
@@ -252,11 +284,12 @@ def cn_check(dec, it, B, what, reps, plain_reps, seed=1):
     return full, cn_ref(m_vn, dec.tables)[0]
 
 
-def kernel_vs_twin(dec, it, seed, B, what):
+def kernel_vs_twin(dec, it, seed, B, what, hold_speed=True):
     """CN then VN kernel of `dec`'s path (QC or std) against the table-driven
     kernel and the plain version; the VN kernel reads the CN plain version's
     output (CN-grouped on the QC path, VN-grouped on the std path, padding
-    rows as that left them).  Returns {kernel name: result dict}."""
+    rows as that left them).  hold_speed: the generated VN kernel must beat
+    the table-driven one.  Returns {kernel name: result dict}."""
     import numpy as np
     import torch
 
@@ -266,7 +299,7 @@ def kernel_vs_twin(dec, it, seed, B, what):
     cha_t = torch.as_tensor(np.asarray(dec.spec.leaf_cha), device=dec.device).to(dec.dtype)
     cha = cha_t[torch.as_tensor(rng.integers(0, len(cha_t), (dec.tables.nvar_pad, B)),
                                 device=dec.device)]
-    r = vn_check(dec, it, m_c2v, cha, what, 20 if qc else 5, 3 if qc else 1)
+    r = vn_check(dec, it, m_c2v, cha, what, 20 if qc else 5, 3 if qc else 1, hold_speed)
     log(f"#   unan true {r['unan_true']}/{B}")
     return {r_cn["name"]: r_cn, r["name"]: r}
 
@@ -306,6 +339,37 @@ def kernels_both_specs(codec, dev, B, phase, results):
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                    r["max_abs_err"])
         del dec
+
+
+def sim_kernels(sim, snr_db, what):
+    """Phases 18 and 19: the kernels of a simulator's LUT decoder at the
+    shapes its run gave them.  The CN frames and the generated VN kernel of
+    its arithmetic prefix at the run's batch width B (and B - 3), on a
+    middle iteration, against their plain versions and the table-driven
+    kernels (the CN one only up to its check degree 32), no stack or spill
+    in a CN frame instantiation that runs, times logged but not held; then
+    one batch of the simulator's own draw at snr_db through the prefix on
+    the kernels and on the twin path (kernels=False): equal bits, ok and
+    iters."""
+    import torch
+
+    from lut_ldpc_torch.decoder import ArithLUTDecoder
+    from lut_ldpc_torch.ops.pmf import snr2sig
+
+    dec = getattr(sim.decoder, "pre", sim.decoder)
+    B, it = sim.config.sim.batch_size, dec.spec.num_iters // 2
+    kernel_vs_twin(dec, it, 1, B, f"{what} {dec.dtype} it={it}", hold_speed=False)
+    sigma = torch.tensor(float(snr2sig(sim.rate, snr_db)), dtype=torch.float32,
+                         device=sim.device)
+    lc, lm = sim.quantize(sim.draw(0, 0, 0, sigma)[2])
+    out = dec(lc, lm)
+    twin = ArithLUTDecoder(dec.codec, sim.device, early_exit=dec.early_exit,
+                           spec=dec.spec, kernels=False,
+                           loop="blocks" if dec.loop == "blocks" else "auto")
+    same(out, twin(lc, lm), f"{what}: kernel path vs twin path")
+    log(f"# {what}: one batch of {B} frames at {snr_db:g} dB through the {dec.S}-iteration "
+        f"prefix: kernel path and twin path identical (ok "
+        f"{float(out[1].float().mean()):.4f}, mean iters {float(out[2].float().mean()):.3f})")
 
 
 def start_vn_builds(codecs, libs):
@@ -360,6 +424,7 @@ def finish_builds(builds, libs):
     for line in ptxas_summary(builds["qc_kernels"].report):
         log(f"#   ptxas {line}")
     qc_n64800_gate(BUILD_REPORT[0])
+    widest_bucket_gate(BUILD_REPORT[0])
     for label, lib, classes in libs.values():
         lib.handle()
         for line in pv.describe_build(lib, classes):
@@ -395,6 +460,27 @@ def qc_n64800_gate(report):
             log(f"# phase 2: QC N=64800 check degree {d}: {key[0]}<{dt}, width {key[2]}, "
                 f"{key[3]} frames a thread>: {r['registers']} registers, no stack, "
                 f"no spill")
+
+
+def widest_bucket_gate(report):
+    """Phase 2: the CN frames' widest bucket (checks of degree 17 to
+    qc_kernels.MAX_CN_DEGREE, one frame a thread: the 10GBase-T code of
+    phase 19), both kernels and storage types, must have no stack frame and
+    no spill."""
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    rows = [r for r in qk.ptxas_cn_frames(report) if r["width"] == qk.MAX_CN_DEGREE]
+    if len(rows) != 4:
+        raise AssertionError(f"expected 4 instantiations of width {qk.MAX_CN_DEGREE}, "
+                             f"found {len(rows)}")
+    for r in rows:
+        if r["stack"] or r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{r['kernel']}<{r['dtype']}, width {r['width']}> has "
+                                 f"{r['stack']} B stack, "
+                                 f"{r['spill_stores'] + r['spill_loads']} B spills")
+    log(f"# phase 2: CN frames' widest bucket, width {qk.MAX_CN_DEGREE}: " + "; ".join(
+        f"{r['kernel']}<{r['dtype']}, {r['vec']} frame a thread>: {r['registers']} "
+        f"registers" for r in rows) + "; no stack, no spill")
 
 
 def frames_only(name, per_pass):
@@ -517,7 +603,7 @@ def headline(dev, smi, codec, results, launches):
     log(f"#   traced decode: wall {wall:.3f} ms, device span {span:.3f} ms, busy "
         f"{busy:.3f} ms (CN+VN kernels {kern:.3f}, torch glue {busy - kern:.3f}), "
         f"idle {100 * (1 - busy / span):.1f} % of the span")
-    return dec, lc_d, lm_d
+    return dec, lc_d, lm_d, mbits, float(iters.float().mean())
 
 
 def peg(dev, smi, codec, lc, lm, rank, results, launches):
@@ -816,6 +902,318 @@ def dvbs2(dev, smi, codec, codec_g, lc, lm):
     return bits[0].cpu().numpy(), int(iters[0])
 
 
+def bp_baselines(dev, smi, codec):
+    """Phase 16: the BP baselines at the headline code and batch (E=30000,
+    B=8192, 2 dB, 50 iterations, early exit): per algorithm the first 256
+    frames against the same decoder on the CPU (bits, ok and iters equal
+    for the four exact algorithms; ok and iters on at least 99 % of the
+    frames for spa), decoded Mbit/s (2 warm-ups, 5 calls) and peak device
+    memory.  Returns {algorithm: (ms, Mbit/s, peak GiB)}."""
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.decoder import BPDecoder
+    from lut_ldpc_torch.ops.pmf import snr2sig
+    from lut_ldpc_torch.sim import bpsk_awgn_llr
+
+    B, n, g = bench.BATCH, 256, codec.graph
+    sigma = torch.tensor(float(snr2sig(0.5, 2.0)), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    llr, _ = bpsk_awgn_llr(gen, torch.zeros((B, g.nvar), dtype=torch.uint8, device=dev),
+                           sigma)
+    llr_cpu = llr[:n].cpu()
+    figures = {}
+    for alg in ("spa", "minsum", "nms", "oms", "qllr"):
+        dec = BPDecoder(g, dev, 50, algorithm=alg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = dec(llr)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        want = BPDecoder(g, "cpu", 50, algorithm=alg)(llr_cpu)
+        cpu_s = time.perf_counter() - t0
+        got = [o[:n].cpu() for o in out]
+        if alg == "spa":
+            agree = [float((w == x).float().mean()) for w, x in zip(want[1:], got[1:])]
+            if min(agree) < 0.99:
+                raise AssertionError(f"BP spa: ok / iters agree with the CPU on {agree} "
+                                     f"of {n} frames (at least 0.99 required)")
+            same_cpu = f"ok and iters equal on {agree[0]:.4f} / {agree[1]:.4f} of the frames"
+        else:
+            same(got, want, f"BP {alg} card vs CPU")
+            same_cpu = "bits, ok and iters equal"
+        for _ in range(2):
+            dec(llr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            rep = dec(llr)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        same(rep, out, f"BP {alg} repeated")
+        mbits = B * codec.k / dt / 1e6
+        figures[alg] = (dt * 1e3, mbits, peak)
+        log(f"# phase 16: BP {alg} B={B}: ok {float(out[1].float().mean()):.6f}, mean iters "
+            f"{float(out[2].float().mean()):.4f}; {dt * 1e3:.3f} ms a decode, {mbits:.3f} "
+            f"Mbit/s, peak device memory {peak:.2f} GiB on {smi}; first {n} frames against "
+            f"the CPU ({cpu_s:.1f}s there): {same_cpu}")
+        del dec, out, rep
+    return figures
+
+
+def sim_step(dev, smi, codec, decode_mbits, decode_iters, results):
+    """Phase 17, run after the golden-model workers have ended: the
+    simulator's step at the headline configuration (BERSim, zero codeword,
+    B=8192, 2 dB, make_staged_decoder as bench.py runs it): one warm-up
+    batch, the decode alone timed on one of the simulator's batches as
+    phase 6 times it, then a run of 6 batches with the launch counts set to
+    0 before it; frames/s and Mbit/s beside the decode-only figure of this
+    phase and of phase 6; the step split into generate, quantize, decode
+    and count (CUDA events, 3 more batches)."""
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.decoder import HybridLUTDecoder
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.ops.pmf import snr2sig
+    from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+
+    B, nb = bench.BATCH, 6
+    cfg = BERSimConfig(sim=SimConfig(SNRdB=np.array([2.0]), Nframes=B, Nfers=10**9,
+                                     batch_size=B), ldpc=LDPCConfig(zero_codeword=True))
+    sim = BERSim(cfg, codec.graph, dev, codec=codec)
+    if not isinstance(sim.decoder, HybridLUTDecoder) or sim.decoder.S != 32:
+        raise AssertionError(f"expected the headline HybridLUTDecoder, got "
+                             f"{type(sim.decoder).__name__}")
+    sim.run(seed=1, verbose=False)  # warm-up batch
+    sigma = torch.tensor(float(snr2sig(sim.rate, 2.0)), dtype=torch.float32, device=dev)
+    lc, lm = sim.quantize(sim.draw(0, 0, nb, sigma)[2])
+    dt_s, _ = bench.time_decode(sim.decoder, lc, lm, bench.REPS)
+    alone_mbits = B * sim.k / dt_s / 1e6
+    del lc, lm
+    cfg.sim.Nframes = nb * B
+    tails = sim.decoder.tail_runs
+    qk.reset_launches()
+    res = sim.run(seed=0, verbose=False)
+    tails = sim.decoder.tail_runs - tails
+    torch.cuda.synchronize()
+    tab = sim.decoder.pre.tables
+    for name, per_pass in (("cn_qc_pass", len(tab.cn_runs)), ("vn_qc_pass", len(tab.vn_runs))):
+        results[name]["sim_launches"] = qk.LAUNCHES[name]
+        frames_only(name, per_pass)
+    frames = int(res.frames[0])
+    iters = float(res.mean_iters()[0])
+    if frames != nb * B or abs(iters - decode_iters) > 0.5:
+        raise AssertionError(f"simulator step: {frames} frames, mean iterations {iters} "
+                             f"(phase 4: {decode_iters})")
+    if not res.ber()[0] < res.uncoded_ber()[0]:
+        raise AssertionError(f"simulator step: data BER {res.ber()[0]}, uncoded "
+                             f"{res.uncoded_ber()[0]}")
+    fps = frames / res.runtime
+    mbits = fps * sim.k / 1e6
+    log(f"# phase 17: BERSim step B={B}, {nb} batches in {res.runtime * 1e3:.3f} ms: "
+        f"{fps:.1f} frames/s, {mbits:.3f} decoded information Mbit/s (decode only, here: "
+        f"{alone_mbits:.3f}, ratio {mbits / alone_mbits:.4f}; phase 6: {decode_mbits:.3f}, "
+        f"ratio {mbits / decode_mbits:.4f}); "
+        f"mean iters {iters:.4f} (phase 4: {decode_iters:.4f}), FER {res.fer()[0]:.3e}, "
+        f"data BER {res.ber()[0]:.3e}, uncoded BER {res.uncoded_ber()[0]:.4e}; {tails} of "
+        f"{nb} batches took the table tail (frames past iteration {sim.decoder.S}); launches "
+        f"{ {n: c for n, c in qk.LAUNCHES.items() if c} } on {smi}")
+    parts, tails = np.zeros(4), sim.decoder.tail_runs
+    for bb in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        u, x, llr, y = sim.draw(0, 0, nb + bb, sigma)
+        slicer = (y < 0).to(torch.uint8)
+        ev[1].record()
+        lc, lm = sim.quantize(llr)
+        ev[2].record()
+        bits, _, it = sim.decoder(lc, lm)
+        ev[3].record()
+        sim.count(bits, it, u, x, slicer)
+        ev[4].record()
+        torch.cuda.synchronize()
+        parts += [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    parts, tails = parts / 3, sim.decoder.tail_runs - tails
+    # the same steps on the host clock, and what a batch's generator costs
+    t0 = time.perf_counter()
+    for bb in range(3):
+        sim.step(0, 0, nb + 3 + bb, sigma)
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    for bb in range(100):
+        torch.Generator(device=dev).manual_seed(bb)
+    gen_ms = (time.perf_counter() - t0) / 100 * 1e3
+    log(f"#   step split (CUDA events, mean of 3 batches): generate {parts[0]:.3f} ms, "
+        f"quantize {parts[1]:.3f}, decode {parts[2]:.3f}, count {parts[3]:.3f}; total "
+        f"{parts.sum():.3f} ms ({100 * parts[2] / parts.sum():.1f} % decode, "
+        f"{tails} of 3 batches with the table tail); "
+        f"BERSim.step on the host clock {host_ms:.3f} ms, a run's batch "
+        f"{res.runtime / nb * 1e3:.3f} ms; a seeded CUDA generator {gen_ms:.4f} ms")
+
+
+def fer_test(f1, n1, f2, n2, z_crit=3.2905):
+    """Two-sided two-proportion z test of frame-error counts at alpha =
+    1e-3: (z, passes)."""
+    p = (f1 + f2) / (n1 + n2)
+    if p in (0.0, 1.0):
+        return 0.0, True
+    z = (f1 / n1 - f2 / n2) / (p * (1 - p) * (1 / n1 + 1 / n2)) ** 0.5
+    return z, abs(z) <= z_crit
+
+
+def waterfall(dev, smi, results):
+    """Phase 18: the N=1000 PEG (3,6) waterfall of examples/ber_waterfall.py
+    (SNR 1.0:0.25:3.5 dB, Nframes 4096, Nfers 200, batch 256, zero codeword,
+    seed 0, ber_min 1e-7) for the q4 min-LUT codec (thr 0.85), spa and nms
+    (50 iterations each), each point's frame errors held against the
+    TPU-era docs/waterfall/{lut_q4,spa,nms}.npz by a two-sided
+    two-proportion test at alpha = 1e-3."""
+    import numpy as np
+
+    from lut_ldpc_torch.core.tanner import TannerGraph
+    from lut_ldpc_torch.decoder import BPDecoder, HybridLUTDecoder, LUTCodec
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+    from lut_ldpc_torch.sim.config import _parse_range
+
+    graph = TannerGraph.from_alist("codes/rate0.50_dv03_dc06_N1000.alist")
+    snr = _parse_range("1.0:0.25:3.5")
+
+    def cfg():
+        return BERSimConfig(sim=SimConfig(SNRdB=snr, Nframes=4096, Nfers=200,
+                                          batch_size=256, ber_min=1e-7),
+                            ldpc=LDPCConfig(zero_codeword=True))
+
+    codec = LUTCodec.design(graph, 0.85**2, max_iters=50, Nq_Cha=16, Nq_Msg=16)
+    failed = []
+    for name, kw in (("lut_q4", dict(codec=codec)),
+                     ("spa", dict(bp_decoder=BPDecoder(graph, dev, 50, algorithm="spa"))),
+                     ("nms", dict(bp_decoder=BPDecoder(graph, dev, 50, algorithm="nms")))):
+        t0 = time.perf_counter()
+        sim = BERSim(cfg(), graph, dev, **kw)
+        qk.reset_launches()
+        res = sim.run(seed=0, verbose=False)
+        if name == "lut_q4":
+            if not isinstance(sim.decoder, HybridLUTDecoder) or sim.decoder.pre.loop != "std":
+                raise AssertionError("expected a HybridLUTDecoder on the std loop")
+            tab = sim.decoder.pre.tables
+            for kname, per_pass in (("cn_std_pass", len(tab.cn_blocks)),
+                                    ("vn_std_pass", len(tab.vn_blocks))):
+                results[kname]["sim_launches"] = qk.LAUNCHES[kname]
+                frames_only(kname, per_pass)
+            sim_kernels(sim, 2.0, "phase 18: lut_q4")
+        ref = np.load(f"docs/waterfall/{name}.npz")
+        rows = []
+        for i, s in enumerate(snr):
+            n1, f1 = int(res.frames[i]), int(res.frame_errors[i])
+            n2, f2 = int(ref["sim_Nframes"][i]), int(ref["sim_frame_errors"][i])
+            if n1 and n2:
+                z, ok = fer_test(f1, n1, f2, n2)
+                if not ok:
+                    failed.append(f"{name} {s:g} dB")
+                rows.append(f"{s:g} dB {f1}/{n1}={f1 / n1:.3e} vs {f2}/{n2}={f2 / n2:.3e} "
+                            f"(z {z:+.2f}{'' if ok else ' FAIL'})")
+            else:
+                rows.append(f"{s:g} dB frames {n1} / TPU-era {n2}")
+        log(f"# phase 18: {name} N=1000 waterfall in {time.perf_counter() - t0:.1f}s "
+            f"({res.runtime:.1f}s simulating, {int(res.frames.sum())} frames) on {smi}; "
+            f"FER here vs TPU-era: " + "; ".join(rows))
+    if failed:
+        raise AssertionError(f"waterfall points outside the two-proportion test at "
+                             f"alpha = 1e-3: {failed}")
+
+
+def cli_run(dev, smi):
+    """Phase 19: lut_ldpc_torch.cli.ber_sim on params/ber.ini.regular.example
+    (10GBase-T (6,32) N=2048, encoded, q4/q3, trees from file, qcha initial
+    messages) on the card, its results and its designed codec in a
+    temporary directory: the files of the JAX CLI's names, read back by the
+    port; the data BER below the uncoded BER wherever the TPU-era curve
+    (docs/waterfall/lut_10gbaset_q4q3.npz) has it below, and each point's
+    frame errors against that curve at alpha = 1e-3; every pass of the run
+    on the CN frames and the generated VN kernel (launch counts set to 0
+    before it); then the kernels of the saved codec's decoder at the run's
+    batch width against their plain versions (sim_kernels)."""
+    import os
+    import tempfile
+
+    from lut_ldpc_torch.cli import ber_sim
+    from lut_ldpc_torch.decoder import LUTCodec
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.sim import BERSim, BERSimResults, parse_ini
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, "params", "ber.ini.regular.example")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(src) as f:
+            text = f.read()
+        ini = os.path.join(tmp, "ber.ini.regular.example")
+        codec_path = os.path.join(tmp, "codec.npz")
+        with open(ini, "w") as f:
+            f.write(text.replace("results_dir = results",
+                                 f"results_dir = {os.path.join(tmp, 'results')}\n"
+                                 f"codec_filename = {codec_path}"))
+        t0 = time.perf_counter()
+        qk.reset_launches()
+        if ber_sim.main(["-p", ini, "-s", "0", "-b", root]) != 0:
+            raise AssertionError("ber_sim CLI failed")
+        cli_s = time.perf_counter() - t0
+        cfg = parse_ini(ini)
+        launches = {n: c for n, c in qk.LAUNCHES.items() if c}
+        # the decoder the CLI built, from the codec it designed and saved
+        codec = LUTCodec.load(codec_path)
+        cfg_zero = parse_ini(ini)
+        cfg_zero.ldpc.zero_codeword = True
+        sim = BERSim(cfg_zero, codec.graph, dev, codec=codec)
+        dec = getattr(sim.decoder, "pre", sim.decoder)
+        if dec.loop != "std" or dec.tables.max_dc <= qk.MAX_DEGREE:
+            raise AssertionError(f"expected the std loop with checks above degree "
+                                 f"{qk.MAX_DEGREE}, got {dec.loop}, {dec.tables.max_dc}")
+        for kname, per_pass in (("cn_std_pass", len(dec.tables.cn_blocks)),
+                                ("vn_std_pass", len(dec.tables.vn_blocks))):
+            frames_only(kname, per_pass)
+        out_dir = os.path.join(tmp, "results")
+        (base,) = os.listdir(out_dir)
+        stem = os.path.join(out_dir, base, f"{base}_rseed0000")
+        for path in (stem + ".npz", stem + ".it", stem + ".json",
+                     os.path.join(out_dir, base, "ber.ini.regular.example")):
+            if not os.path.exists(path):
+                raise AssertionError(f"CLI did not write {path}")
+        res = BERSimResults.load(stem + ".npz")
+        it = BERSimResults.load_itfile(stem + ".it")
+        if it.frames.tolist() != res.frames.tolist() or base != ber_sim.gen_filename(
+                cfg, res.nvar, res.rate):
+            raise AssertionError("CLI results: .it and .npz disagree or wrong name")
+    ref = BERSimResults.load("docs/waterfall/lut_10gbaset_q4q3.npz")
+    rows, bad = [], []
+    for i, s in enumerate(res.snr_db):
+        if not res.frames[i]:
+            rows.append(f"{s:g} dB no frames")
+            continue
+        z, ok, below = 0.0, True, True  # above the TPU-era curve's last point
+        if ref.frames[i]:
+            z, ok = fer_test(int(res.frame_errors[i]), int(res.frames[i]),
+                             int(ref.frame_errors[i]), int(ref.frames[i]))
+            below = ref.ber()[i] < ref.uncoded_ber()[i]
+        if not ok or (below and not res.ber()[i] < res.uncoded_ber()[i]):
+            bad.append(f"{s:g} dB")
+        rows.append(f"{s:g} dB frames {res.frames[i]}, data BER {res.ber()[i]:.3e} "
+                    f"(uncoded {res.uncoded_ber()[i]:.3e}), FER {res.fer()[i]:.3e} vs "
+                    f"TPU-era {ref.fer()[i]:.3e} (z {z:+.2f})")
+    if bad:
+        raise AssertionError(f"CLI run off the TPU-era curve at {bad}")
+    log(f"# phase 19: ber_sim CLI on params/ber.ini.regular.example in {cli_s:.1f}s "
+        f"(N={res.nvar}, rate {res.rate:g}, check degrees "
+        f"{sorted(b.degree for b in dec.tables.cn_blocks)}): {base}_rseed0000.npz, .it, "
+        f".json and the params copy written and read back; launches {launches}; "
+        + "; ".join(rows) + f" on {smi}")
+    sim_kernels(sim, 4.5, "phase 19: 10GBase-T")
+
+
 def check_worker_golden(what, golden, frame0, max_iters):
     import numpy as np
 
@@ -891,7 +1289,8 @@ def main():
         finish_builds(builds, libs)
         log(f"#   {len(builds) + len(libs)} libraries built side by side in "
             f"{time.perf_counter() - t0:.1f}s")
-        head_dec, head_lc, head_lm = headline(dev, smi, head_codec, results, launches)
+        head_dec, head_lc, head_lm, head_mbits, head_iters = headline(
+            dev, smi, head_codec, results, launches)
         torch.cuda.empty_cache()
         # the PEG rank (a third busy worker) starts after the headline's
         # timed phase
@@ -906,8 +1305,22 @@ def main():
         phantom_toy(dev)
         torch.cuda.empty_cache()
         dvb_frame0 = dvbs2(dev, smi, dvb_codec, dvb_codec_g, dvb_lc, dvb_lm)
+        del dvb_lc, dvb_lm
+        torch.cuda.empty_cache()
+        # phases 16, 18 and 19 run while the golden workers finish
+        for phase, run in ((16, lambda: bp_baselines(dev, smi, head_codec)),
+                           (18, lambda: waterfall(dev, smi, results)),
+                           (19, lambda: cli_run(dev, smi))):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.empty_cache()
+            log(f"# phase {phase} took {time.perf_counter() - t0:.1f}s")
         check_worker_golden("PEG", golden, peg_frame0, codec.max_iters)
         check_worker_golden("DVB-S2", golden_dvb, dvb_frame0, codec.max_iters)
+    # the workers have ended: the simulator's step is timed on a quiet host
+    t0 = time.perf_counter()
+    sim_step(dev, smi, head_codec, head_mbits, head_iters, results)
+    log(f"# phase 17 took {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],

@@ -12,8 +12,11 @@
 // (tests/test_torch_cn_frame.py).
 //
 // Degrees 1 to kExact are instantiated exactly (x[] is d values, every guard
-// folds away); wider checks go to a bucket of width 12, 16 or 32 that takes
-// the degree at run time.
+// folds away); wider checks go to a bucket of width 12, 16 or 40 that takes
+// the degree at run time.  The widest bucket serves the 10GBase-T (6,32)
+// code's checks of degree 31-33: at one frame a thread ptxas gave the std
+// kernel's int16 instantiation 193 registers and no spill at width 40, where
+// width 32 spilled (8 B stack) and width 64 too (255 registers).
 
 #pragma once
 
@@ -29,7 +32,7 @@
 namespace lutcn {
 
 constexpr int kExact = 10;      // widest degree instantiated exactly
-constexpr int kMaxDegree = 32;  // widest bucket
+constexpr int kMaxDegree = 40;  // widest bucket
 
 // Instantiation width of a check degree (0: none)
 constexpr int width_of(int d) {
@@ -37,12 +40,12 @@ constexpr int width_of(int d) {
          : d <= kExact     ? d
          : d <= 12         ? 12
          : d <= 16         ? 16
-         : d <= kMaxDegree ? 32
+         : d <= kMaxDegree ? kMaxDegree
                            : 0;
 }
 
 #define LUT_CN_FOR_WIDTHS(X) \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(12) X(16) X(32)
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(12) X(16) X(40)
 
 template <typename T>
 LUT_CN_FN T store_as(float v);

@@ -70,6 +70,7 @@ UNITS = {
                           ("-DLUT_CN_STORAGE=float",)),
 }
 MAX_DEGREE = 32  # widest row table the kernels are instantiated for
+MAX_CN_DEGREE = 40  # widest check of the CN frames (kMaxDegree in cn_frame.h)
 MAX_TREE_OPS = 32  # ops of one VN tree (kMaxOps in the source)
 NOTHING_TO_LAUNCH = -1  # kNothingToLaunch of the CN and VN frames
 
@@ -271,6 +272,14 @@ def cn_qc_pass_ref(m_vn: torch.Tensor, tables: QCTables):
     return m_cn, synd
 
 
+def _check_cn_degree(max_dc: int, generic: bool) -> None:
+    """The CN frames take checks up to MAX_CN_DEGREE, the table-driven
+    witness up to MAX_DEGREE."""
+    limit = MAX_DEGREE if generic else MAX_CN_DEGREE
+    if max_dc > limit:
+        raise ValueError(f"check degree {max_dc} > {limit}")
+
+
 def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
     """CN pass: v2c circulant rolls, min-LUT two-min and sign-parity update,
     per-frame syndrome of the input signs.  CUDA tensors launch the CN
@@ -282,8 +291,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
     if dev.type == "cpu":
         return cn_qc_pass_ref(m_vn, tables)
     B = m_vn.shape[1]
-    if tables.max_dc > MAX_DEGREE:
-        raise ValueError(f"check degree {tables.max_dc} > {MAX_DEGREE}")
+    _check_cn_degree(tables.max_dc, generic)
     R = tables.cn_src.shape[0]
     _check_grid(R * tables.Z, B)
     m_cn = torch.empty((tables.rows_cn, B), dtype=m_vn.dtype, device=dev)
@@ -525,8 +533,7 @@ def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
     _check_msgs(m_vn, tables.rows_vn, tables.cn_cls.device)
     if m_vn.device.type == "cpu":
         return cn_std_pass_ref(m_vn, tables)
-    if tables.max_dc > MAX_DEGREE:
-        raise ValueError(f"check degree {tables.max_dc} > {MAX_DEGREE}")
+    _check_cn_degree(tables.max_dc, generic)
     B = m_vn.shape[1]
     _check_grid(tables.nchk_pad, B)
     synd = torch.ones(B, dtype=torch.bool, device=m_vn.device)

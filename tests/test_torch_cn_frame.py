@@ -2,7 +2,7 @@
 compiled as host C++ with ``g++ -O2 -ffp-contract=off``, against the plain
 version ``qc_kernels._cn_compute``.
 
-Every check degree from 2 to 32 (the exact instantiations up to 10 and the
+Every check degree from 2 to 40 (the exact instantiations up to 10 and the
 three run-time-degree buckets above), degree 1 in float32, both storage types;
 values drawn from a small alphabet so that ties at min1 == min2, zeros and
 repeated magnitudes are common.  Tolerance: zero (outputs and parity
@@ -64,7 +64,7 @@ def _values(rng, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
-@pytest.mark.parametrize("d", list(range(2, 33)))
+@pytest.mark.parametrize("d", list(range(2, qk.MAX_CN_DEGREE + 1)))
 def test_cn_frame_equals_plain_version(host_cn, d, dtype):
     x = _values(np.random.default_rng(d), d, dtype)
     x[:, 0] = 3.0   # all magnitudes equal: min1 == min2 everywhere
@@ -79,14 +79,14 @@ def test_cn_frame_equals_plain_version(host_cn, d, dtype):
 
 def test_cn_frame_degree_one_and_limits(host_cn):
     """A single input: min2 stays infinite, and so does the output (float32);
-    degrees 0 and 33 have no instantiation."""
+    degrees 0 and 65 (above the widest bucket) have no instantiation."""
     x = np.array([[-2.5, 0.0, 1.25]], np.float32)
     out, par = _run(host_cn, x, False)
     want, wpar = qk._cn_compute(torch.as_tensor(x)[:, None, :])
     np.testing.assert_array_equal(out, want[:, 0].numpy())
     np.testing.assert_array_equal(par, wpar[0].numpy())
     fp = ctypes.POINTER(ctypes.c_float)
-    for d in (0, 33):
+    for d in (0, qk.MAX_CN_DEGREE + 1):
         assert host_cn.lut_cn_host_eval(d, 0, fp(), fp(), None, 0) == -1
 
 

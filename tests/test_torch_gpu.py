@@ -9,7 +9,8 @@ Tolerance: zero on real rows (values, bits, syndrome, unanimity) and on
 decoder outputs.  Covers the QC, std and per-degree-block kernels, the
 generated VN kernels and the CN frames against the table-driven ones and the
 plain versions (both dtypes, an even and an odd batch width), and a
-mixed-precision and a phantom-completed decode end to end.
+mixed-precision and a phantom-completed decode end to end; the BP baselines
+and the simulator on the card against the CPU, and its draws repeatable.
 """
 
 import numpy as np
@@ -330,3 +331,98 @@ def test_phantom_decode_matches_twin_path_and_golden(loop):
         want, it = codec.decode_ref(lc[f], lm[f])
         assert np.array_equal(bits[f], np.asarray(want))
         assert iters[f] == abs(it) and ok[f] == (it > 0)
+
+
+@pytest.mark.parametrize("alg", ["minsum", "nms", "oms", "qllr"])
+def test_bp_card_equals_cpu(codec, alg):
+    """The BP baselines whose operations are exact: bits, ok and iters on
+    the card equal the CPU's, with early exit (the funnel) and without."""
+    from lut_ldpc_torch.decoder import BPDecoder
+
+    g = codec.graph
+    rng = np.random.default_rng(3)
+    y = 1.0 + 0.8 * rng.standard_normal((300, g.nvar))
+    llr = (2.0 * y / 0.64).astype(np.float32)
+    for early in (True, False):
+        want = BPDecoder(g, "cpu", 20, algorithm=alg, early_exit=early)(llr)
+        got = BPDecoder(g, "cuda", 20, algorithm=alg, early_exit=early)(
+            torch.as_tensor(llr, device="cuda"))
+        for w, x in zip(want, got):
+            assert x.is_cuda and torch.equal(w, x.cpu())
+
+
+def _numpy_stream(B, nvar, k):
+    """A channel hook with a numpy stream (zero codewords)."""
+    def hook(ss, bb, sigma):
+        rng = np.random.default_rng([ss, bb])
+        s = np.float32(sigma)
+        y = (1.0 + s * rng.standard_normal((B, nvar)).astype(np.float32)).astype(np.float32)
+        return np.zeros((B, k), np.uint8), (np.float32(2.0) * y / (s * s)), y
+    return hook
+
+
+def test_bersim_under_hook_card_equals_cpu(codec):
+    """One stream fed to the simulator on both devices: the LUT and the
+    minsum runs count alike."""
+    from lut_ldpc_torch.decoder import BPDecoder
+    from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+
+    cfg = BERSimConfig(sim=SimConfig(SNRdB=np.array([1.5, 2.5]), Nframes=512, Nfers=10**9,
+                                     batch_size=256), ldpc=LDPCConfig(zero_codeword=True))
+    hook = _numpy_stream(256, codec.nvar, codec.k)
+    for kw in (lambda d: dict(codec=codec),
+               lambda d: dict(bp_decoder=BPDecoder(codec.graph, d, 20, algorithm="minsum"))):
+        runs = [BERSim(cfg, codec.graph, d, channel=hook, **kw(d)).run(seed=0, verbose=False)
+                for d in ("cpu", "cuda")]
+        for name in ("frames", "frame_errors", "data_bit_errors", "uncoded_bit_errors",
+                     "decode_iters"):
+            assert getattr(runs[0], name).tolist() == getattr(runs[1], name).tolist(), name
+        assert runs[1].frame_errors[0] > 0
+
+
+def test_bersim_card_deterministic(codec):
+    """The card's own draws: one seed gives one result, another seed
+    another."""
+    from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+
+    cfg = BERSimConfig(sim=SimConfig(SNRdB=np.array([2.0]), Nframes=1024, Nfers=10**9,
+                                     batch_size=512), ldpc=LDPCConfig(zero_codeword=True))
+    runs = [BERSim(cfg, codec.graph, "cuda", codec=codec).run(seed=s, verbose=False)
+            for s in (4, 4, 5)]
+    assert runs[0].uncoded_bit_errors.tolist() == runs[1].uncoded_bit_errors.tolist()
+    assert runs[0].decode_iters.tolist() == runs[1].decode_iters.tolist()
+    assert runs[0].uncoded_bit_errors.tolist() != runs[2].uncoded_bit_errors.tolist()
+
+
+def test_checks_above_degree_32_on_the_cn_frames():
+    """The 10GBase-T (6,32) code has checks of degree 31-33: the CN frames'
+    bucket of width 40 against the plain version, and a prefix decode on the
+    kernels against the twin path."""
+    import os
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    g = TannerGraph.from_alist(os.path.join(repo, "codes", "rate0.84_reg_v6c32_N2048.alist"))
+    sig = float(snr2sig(0.84, 3.9))
+    codec = LUTCodec.design(g, sig**2, max_iters=8, Nq_Cha=16, Nq_Msg=8)
+    for dtype in (np.int16, np.float32):
+        spec = build_arith_prefix_spec(codec, dtype=dtype)
+        dec = ArithLUTDecoder(codec, "cuda", spec=spec)
+        tab, it, B = dec.tables, spec.num_iters // 2, 300
+        assert dec.loop == "std" and tab.max_dc == 33
+        rng = np.random.default_rng(5)
+        table = torch.as_tensor(root_levels(spec, it), device="cuda")
+        m = table[torch.as_tensor(rng.integers(0, len(table), (tab.rows_vn, B)),
+                                  device="cuda")]
+        m_c2v, synd = qk.cn_std_pass(m, tab)
+        r_c2v, r_synd = qk.cn_std_pass_ref(m, tab)
+        assert torch.equal(m_c2v[tab.vn_real], r_c2v[tab.vn_real])
+        assert torch.equal(synd, r_synd)
+        y = 1.0 + sig * rng.standard_normal((64, codec.nvar))
+        lc, lm = codec.quantize_channel(2.0 * y / sig**2)
+        lc, lm = torch.as_tensor(lc, device="cuda"), torch.as_tensor(lm, device="cuda")
+        a = dec(lc, lm)
+        b = ArithLUTDecoder(codec, "cuda", spec=spec, kernels=False)(lc, lm)
+        for x, z in zip(a, b):
+            assert torch.equal(x, z)

@@ -99,3 +99,48 @@ def test_decodes_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
+
+
+def test_simulates_with_jax_blocked(tmp_path):
+    """The simulator, the BP baselines and the ber_sim CLI in a process
+    where jax, jaxlib and lut_ldpc_tpu cannot be imported."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["lut_ldpc_tpu"] = None
+        import os
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from lut_ldpc_torch.core import qc
+        from lut_ldpc_torch.core.alist import write_alist
+        from lut_ldpc_torch.decoder import BPDecoder, LUTCodec
+        from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+        from lut_ldpc_torch.cli import ber_sim
+        g = qc.qc_expand(qc.qc_generate_regular(3, 6, Z=16, nb=8, seed=1))
+        codec = LUTCodec.design(g, 0.85**2, max_iters=8, Nq_Cha=16, Nq_Msg=16)
+        cfg = BERSimConfig(sim=SimConfig(SNRdB=np.array([3.0]), Nframes=64,
+                                         batch_size=32),
+                           ldpc=LDPCConfig(zero_codeword=True))
+        for kw in (dict(codec=codec), dict(bp_decoder=BPDecoder(g, "cpu", 8))):
+            r = BERSim(cfg, g, "cpu", **kw).run(seed=0, verbose=False)
+            assert r.frames.tolist() == [64] and r.ber()[0] < r.uncoded_ber()[0]
+        root = sys.argv[1]
+        os.makedirs(os.path.join(root, "codes"))
+        write_alist(os.path.join(root, "codes", "c.alist"), g.to_dense())
+        ini = os.path.join(root, "bp.ini")
+        with open(ini, "w") as f:
+            f.write("[Sim]\\nSNRdB = 3\\nNframes = 8\\nbatch_size = 8\\n"
+                    "[LDPC]\\nparity_filename = c\\nzero_codeword = 0\\n"
+                    "[BP]\\nmax_iter = 5\\nalgorithm = nms\\n")
+        assert ber_sim.main(["-p", ini, "-b", root, "--device", "cpu"]) == 0
+        assert sys.modules["jax"] is None
+        assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "OK"
