@@ -99,7 +99,22 @@ Phases (each prints; any failure raises and exits non-zero):
     pass on the CN frames and the generated VN kernel; then the kernels of
     the decoder of the codec it saved at B=128 and 125 as in phase 18 (the
     CN frames against the plain version only: no table-driven CN kernel
-    takes checks of degree 33).
+    takes checks of degree 33);
+20. after phase 17, the batched density-evolution explorers (torch ops on
+    the card, no hand-written kernel) and their CLIs: (a) DELutGPU on the
+    published irregular q4 ensemble (joint_root, 2000 iterations),
+    threshold(points=9, rounds=3) within 2e-3 of 0.929193, its wall time,
+    DE iterations per round, ms per DE iteration with the CUDA graph and
+    eager (outputs equal), kernels per eager iteration, peak memory; (b)
+    the first grid round at 400 iterations twice on the card (array_equal)
+    and once on the CPU (equal decisions more than 0.01 from the
+    threshold), the same for DEBpGPU on the (3,6) ensemble at Nb=9 with its
+    threshold within 3e-3 of 0.88046; (c) prerank_reuse over the 99
+    single-reuse candidates of reuse_vec_opt's first round at sigma 0.82,
+    100 iterations: the top 10 equal to the CPU's at pmax 1e-4 (printed,
+    not held, at 1e-6, below the f32 floor); (d) the de_sim CLI with and
+    without accelerator_sweep (thresholds within thr_prec) and
+    reuse_vec_opt --accel 8, each in a process of its own.
 Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19) must have run each
 CN and VN pass on the CN frames, the CN block kernel or the generated VN
 kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
@@ -1214,6 +1229,213 @@ def cli_run(dev, smi):
     sim_kernels(sim, 4.5, "phase 19: 10GBase-T")
 
 
+def de_launches(tde, v2c, cha, iters):
+    """Kernels the eager loop body launches an iteration (torch.profiler over
+    `iters` eager iterations): device kernels seen, and the runtime's
+    cudaLaunchKernel calls; None where the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    maxiter, graph = tde.maxiter_de, tde.graph
+    tde.maxiter_de, tde.graph = iters, False
+    try:
+        tde.evolve(v2c, cha)  # warm-up: masks, tables, plans
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tde.evolve(v2c, cha)
+            torch.cuda.synchronize()
+    finally:
+        tde.maxiter_de, tde.graph = maxiter, graph
+    events = list(prof.events())
+    kernels = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    launches = sum(1 for e in events if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                    "cudaLaunchKernelExC"))
+    return (kernels / iters or None), (launches / iters or None)
+
+
+def timed_evolve(tde, v2c, cha):
+    """(outputs as numpy, seconds, iterations) of one evolve on the card."""
+    import torch
+
+    tde.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tde.evolve(v2c, cha) if cha is not None else tde.evolve(v2c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return [t.cpu().numpy() for t in out], dt, tde.stats.iterations
+
+
+def same_outputs(a, b, what):
+    import numpy as np
+
+    for x, y in zip(a, b):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: outputs differ ({x} vs {y})")
+
+
+def de_explorers(dev, smi):
+    """Phase 20: the batched DE explorers (torch ops; no hand-written
+    kernel) and the de_sim / reuse_vec_opt CLIs on the card."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch.core.ensemble import LDPCEnsemble
+    from lut_ldpc_torch.design import DEBpGPU, DELutGPU
+
+    # 20a: the published design point at full size
+    irr = LDPCEnsemble.read("ensembles/rate0.50_dv02-17_dc08-09_lut_q4.ens")
+    kw = dict(maxiter_de=2000, Pe_max=1e-6, max_ni_de_iters=30, strategy="joint_root",
+              tree_mode="auto_bin_balanced")
+    tde = DELutGPU(irr, 16, 16, device=dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    thr = tde.threshold(points=9, rounds=3)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rounds = list(tde.stats.loops)
+    if abs(thr - 0.929193) > 2e-3:
+        raise AssertionError(f"phase 20a: DE-LUT threshold {thr} not within 2e-3 of 0.929193")
+    # ms per DE iteration on the threshold's last grid, graph and eager
+    step = (tde.thr_max - tde.thr_min) / 8**2
+    grid = np.linspace(thr - step / 2, thr + step / 2, 9)
+    v2c, cha = tde.channel_pmfs(grid)
+    out_g, dt_g, n_g = timed_evolve(tde, v2c, cha)
+    tde.graph = False
+    out_e, dt_e, n_e = timed_evolve(tde, v2c, cha)
+    tde.graph = True
+    same_outputs(out_g, out_e, "phase 20a: CUDA graph against the eager loop")
+    kernels, launches = de_launches(tde, v2c, cha, 10)
+    log(f"# phase 20a: DE-LUT irregular q4 joint_root (VN 2/3/9/17, CN 8/9), "
+        f"threshold(points=9, rounds=3) = {thr:.6f} (published 0.929193, "
+        f"diff {thr - 0.929193:+.6f}) in {wall:.3f} s wall; DE iterations per round "
+        f"{rounds}; peak device memory {peak:.3f} GiB; on the last grid ({n_g} iterations): "
+        f"{dt_g / n_g * 1e3:.4f} ms per DE iteration with the CUDA graph, "
+        f"{dt_e / n_e * 1e3:.4f} eager (outputs equal); kernels per eager iteration "
+        f"{kernels} (profiler), cudaLaunchKernel calls {launches}; one graph launch an "
+        f"iteration with the graph; on {smi}")
+
+    # 20b: the card against the CPU and against itself, first grid round
+    def first_round(make, ref_thr, what, args):
+        gpu, cpu = make(dev), make("cpu")
+        grid = np.linspace(*args, 9)
+        outs = []
+        for _ in range(2):
+            if isinstance(gpu, DELutGPU):
+                outs.append(timed_evolve(gpu, *gpu.channel_pmfs(grid)))
+            else:
+                outs.append(timed_evolve(gpu, gpu.channel_pmfs(grid), None))
+        same_outputs(outs[0][0], outs[1][0], f"phase 20b: {what}: two card runs")
+        t0 = time.perf_counter()
+        if isinstance(cpu, DELutGPU):
+            ach_c, Pe_c, _ = (t.numpy() for t in cpu.evolve(*cpu.channel_pmfs(grid)))
+        else:
+            ach_c, Pe_c, _ = (t.numpy() for t in cpu.evolve(cpu.channel_pmfs(grid)))
+        cpu_s = time.perf_counter() - t0
+        ach, Pe = outs[0][0][0], outs[0][0][1]
+        far = np.abs(grid - ref_thr) > 0.01
+        if not np.array_equal(ach[far], ach_c[far]):
+            raise AssertionError(f"phase 20b: {what}: card decisions {ach} against CPU {ach_c}")
+        rel = float(np.max(np.abs(Pe - Pe_c) / np.maximum(np.abs(Pe_c), 1e-30)))
+        log(f"# phase 20b: {what}: first grid round ({outs[0][2]} iterations) twice on the "
+            f"card, array_equal; {outs[0][1] * 1e3:.3f} ms on the card, {cpu_s:.3f} s on the "
+            f"CPU; decisions equal at the {int(far.sum())} points more than 0.01 from the "
+            f"threshold ({ach.astype(int).tolist()} / {ach_c.astype(int).tolist()}); largest "
+            f"relative Pe difference {rel:.3e}; on {smi}")
+
+    kw400 = dict(kw, maxiter_de=400)
+    first_round(lambda d: DELutGPU(irr, 16, 16, device=d, **kw400), thr,
+                "DE-LUT irregular q4, maxiter_de=400", (tde.thr_min, tde.thr_max))
+    ens36 = LDPCEnsemble(np.array([3]), np.array([1.0]), np.array([6]), np.array([1.0]))
+    bkw = dict(Nb=9, maxiter_de=1000, Pe_max=1e-6)
+    bp = DEBpGPU(ens36, device=dev, **bkw)
+    bp.stats.reset()
+    t0 = time.perf_counter()
+    thr_bp = bp.threshold(points=9, rounds=3)
+    bp_wall = time.perf_counter() - t0
+    bp_rounds = list(bp.stats.loops)
+    if abs(thr_bp - 0.88046) > 3e-3:
+        raise AssertionError(f"phase 20b: DE-BP threshold {thr_bp} not within 3e-3 of 0.88046")
+    pmf = bp.channel_pmfs(np.linspace(thr_bp - 0.004, thr_bp + 0.004, 9))
+    out_g, dt_g, n_g = timed_evolve(bp, pmf, None)
+    bp.graph = False
+    out_e, dt_e, n_e = timed_evolve(bp, pmf, None)
+    bp.graph = True
+    same_outputs(out_g, out_e, "phase 20b: DE-BP CUDA graph against the eager loop")
+    log(f"# phase 20b: DE-BP (3,6) Nb=9 threshold(points=9, rounds=3) = {thr_bp:.6f} "
+        f"(pinned 0.88046) in {bp_wall:.3f} s, DE iterations per round {bp_rounds}; "
+        f"near the threshold ({n_g} iterations) {dt_g / n_g * 1e3:.4f} ms per DE iteration "
+        f"with the CUDA graph, {dt_e / n_e * 1e3:.4f} eager (outputs equal); on {smi}")
+    first_round(lambda d: DEBpGPU(ens36, device=d, **bkw), thr_bp,
+                "DE-BP (3,6) Nb=9, maxiter_de=1000", (bp.host.thr_min, bp.host.thr_max))
+
+    # 20c: reuse pre-ranking, every single-reuse candidate of the first
+    # round of reuse_vec_opt (cli/reuse_vec_opt.py: 99 rows at 100 iterations)
+    M = 100
+    rm = np.zeros((M - 1, M), bool)
+    rm[np.arange(M - 1), np.arange(1, M)] = True
+    for pmax, gate in ((1e-4, True), (1e-6, False)):
+        ranks = []
+        for d in (dev, "cpu"):
+            acc = DELutGPU(ens36, 16, 16, maxiter_de=M, Pe_max=pmax, max_ni_de_iters=1,
+                           device=d)
+            Pe, it_hit = acc.prerank_reuse(0.82, rm, pmax)
+            ranks.append(np.argsort(Pe, kind="stable")[:10])
+            if d == dev:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = acc.prerank_reuse(0.82, rm, pmax)
+                call_ms = (time.perf_counter() - t0) * 1e3
+                same_outputs((Pe, it_hit), again, "phase 20c: two card runs")
+        agree = int((ranks[0] == ranks[1]).sum())
+        if gate and agree != 10:
+            raise AssertionError(f"phase 20c: top 10 {ranks[0]} on the card, {ranks[1]} on "
+                                 f"the CPU")
+        log(f"# phase 20c: prerank_reuse sigma 0.82, (3,6) q4 min-LUT, 99 candidates x "
+            f"{M} iterations, pmax {pmax:g}: {call_ms:.3f} ms a call on the card; top 10 "
+            f"{ranks[0].tolist()}, {agree} of 10 places equal to the CPU's"
+            + ("" if gate else " (f32 noise regime, ROADMAP C12: not held)") + f"; on {smi}")
+
+    # 20d: the CLIs on the card, in processes of their own
+    with tempfile.TemporaryDirectory() as tmp:
+        thrs, secs = [], []
+        for accel in (1, 0):
+            ini = os.path.join(tmp, f"de{accel}.ini")
+            report = os.path.join(tmp, f"report{accel}.txt")
+            with open(ini, "w") as f:
+                f.write("[Sim]\nensemble_filename = ensembles/rate0.50_dv03_dc06.ens\n"
+                        f"maxiter_de = 200\nthr_prec = 1e-4\naccelerator_sweep = {accel}\n"
+                        f"results_name = {report}\n[LUT]\nqbits = 4 4\nmin_lut = true\n")
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "lut_ldpc_torch.cli.de_sim", "-p", ini],
+                           check=True, capture_output=True, text=True, timeout=600)
+            secs.append(time.perf_counter() - t0)
+            with open(report) as f:
+                txt = f.read()
+            thrs.append(float(txt.split("Threshold(s) found = [")[1].split("]")[0]))
+        if abs(thrs[0] - thrs[1]) > 1e-4:
+            raise AssertionError(f"phase 20d: de_sim thresholds {thrs} differ by more "
+                                 f"than thr_prec")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "lut_ldpc_torch.cli.reuse_vec_opt", "-m", "-t", "0.82",
+             "-i", "30", "-r", "10", "-p", "1e-6", "-d", "3 / 1.0 / 6 / 1.0", "--accel", "8"],
+            check=True, capture_output=True, text=True, timeout=600).stdout
+        reuse_s = time.perf_counter() - t0
+        lines = out.strip().splitlines()
+        if "Finished." not in lines:
+            raise AssertionError(f"phase 20d: reuse_vec_opt did not finish: {lines[-3:]}")
+    log(f"# phase 20d: de_sim (3,6) q4 min-LUT, 200 iterations, thr_prec 1e-4: threshold "
+        f"{thrs[0]:.6f} with accelerator_sweep = 1 in {secs[0]:.2f} s, {thrs[1]:.6f} with "
+        f"accelerator_sweep = 0 in {secs[1]:.2f} s; reuse_vec_opt --accel 8 (30 iterations, "
+        f"10 stages) in {reuse_s:.2f} s: {lines[-1]}; on {smi}")
+
+
 def check_worker_golden(what, golden, frame0, max_iters):
     import numpy as np
 
@@ -1321,6 +1543,10 @@ def main():
     t0 = time.perf_counter()
     sim_step(dev, smi, head_codec, head_mbits, head_iters, results)
     log(f"# phase 17 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    de_explorers(dev, smi)
+    log(f"# phase 20 took {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],

@@ -1,7 +1,7 @@
 """The port imports no jax and nothing of the JAX package: statically, and
-in a process where neither can be imported at all (as on a GPU machine
-that has neither), which designs and decodes a QC codec and a
-phantom-completed one."""
+in processes where neither can be imported at all (as on a GPU machine
+that has neither), which design and decode a QC codec and a
+phantom-completed one, simulate, and run the DE explorers and de_sim."""
 
 import ast
 import os
@@ -135,6 +135,49 @@ def test_simulates_with_jax_blocked(tmp_path):
                     "[LDPC]\\nparity_filename = c\\nzero_codeword = 0\\n"
                     "[BP]\\nmax_iter = 5\\nalgorithm = nms\\n")
         assert ber_sim.main(["-p", ini, "-b", root, "--device", "cpu"]) == 0
+        assert sys.modules["jax"] is None
+        assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
+def test_designs_with_jax_blocked(tmp_path):
+    """The batched DE explorers and the de_sim CLI (with its explorer
+    sweep) in a process where jax, jaxlib and lut_ldpc_tpu cannot be
+    imported."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["lut_ldpc_tpu"] = None
+        import os
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from lut_ldpc_torch.core.ensemble import LDPCEnsemble
+        from lut_ldpc_torch.design import DEBpGPU, DELutGPU
+        from lut_ldpc_torch.cli import de_sim
+        ens = LDPCEnsemble(np.array([3]), np.array([1.0]), np.array([6]), np.array([1.0]))
+        ach, Pe = DELutGPU(ens, maxiter_de=40, max_ni_de_iters=30,
+                           device="cpu").evolve_batch([0.7, 1.0])
+        assert ach.tolist() == [True, False] and Pe.shape == (2,)
+        ach, Pe = DEBpGPU(ens, Nb=6, maxiter_de=100, device="cpu").evolve_batch([0.7, 1.0])
+        assert ach.tolist() == [True, False]
+        root = sys.argv[1]
+        ini = os.path.join(root, "de.ini")
+        with open(ini, "w") as f:
+            f.write("[Sim]\\nensemble_filename = ensembles/rate0.50_dv03_dc06.ens\\n"
+                    "thr_prec = 1e-2\\nmaxiter_de = 20\\naccelerator_sweep = 1\\n"
+                    f"results_name = {root}/report.txt\\n"
+                    "[LUT]\\nqbits = 4 4\\nmin_lut = true\\n")
+        assert de_sim.main(["-p", ini, "--device", "cpu"]) == 0
+        with open(os.path.join(root, "report.txt")) as f:
+            assert "Threshold(s) found" in f.read()
         assert sys.modules["jax"] is None
         assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
         print("OK")
