@@ -114,8 +114,26 @@ Phases (each prints; any failure raises and exits non-zero):
     100 iterations: the top 10 equal to the CPU's at pmax 1e-4 (printed,
     not held, at 1e-6, below the f32 floor); (d) the de_sim CLI with and
     without accelerator_sweep (thresholds within thr_prec) and
-    reuse_vec_opt --accel 8, each in a process of its own.
-Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19) must have run each
+    reuse_vec_opt --accel 8, each in a process of its own;
+21. after phase 20, the data-parallel mesh (lut_ldpc_torch/parallel), the
+    entry points and PEG: (a) phase 17's simulator step (zero codeword,
+    B=8192, 2 dB, 6 batches) over two slots on cuda:0, the seven counters
+    equal to the unmeshed run's, the QC pair launched with no witness
+    (launch counts set to 0 just before the meshed run); then at 1.5 dB
+    an Nfers stop after an odd number of batches (the group's surplus
+    batch dropped), equal on one and two slots; (b) the same 2 dB run in
+    two spawned processes of one slot each on cuda:0 joined by gloo, each
+    loading the headline codec from the file phase 2 saved, its counters
+    equal to (a)'s, no library built (the ranks find phase 2's on disk),
+    a timeout on the ranks; (c) DELutGPU on the (3,6) ensemble over two
+    slots: evolve_batch at 11 points and prerank_reuse at 5 rows
+    array_equal to the unmeshed explorer on the card; (d) entry("cuda")
+    decodes as entry("cpu"), and dryrun_multichip(2) on ["cuda:0"] * 2
+    passes its kernel-path check; (e) peg_gen (3,6) N=1000 through the
+    port's native library.  It prints a `mesh` JSON line: the counters of
+    each run, ms a batch on one slot, on two slots sharing the card and in
+    two processes, and the seconds of each part.
+Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21) must have run each
 CN and VN pass on the CN frames, the CN block kernel or the generated VN
 kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
 (time, plain twin's time, the card's bound for the same work; `launches`
@@ -124,8 +142,10 @@ for `cn_block_pass`), `class_launches` the kernel launches these made, one
 a degree class, block or run of block-rows; the rows of the CN frames and
 of the generated VN kernels also carry `witness_ms`, the table-driven
 kernel's time, and `cn_std_pass` `unfolded_ms`; the QC pair's
-`sim_launches` are the passes of phase 17's simulator run, the std pair's
-those of phase 18's LUT run), the card, and last the device line.
+`sim_launches` are the passes of phase 17's simulator run and
+`mesh_launches` those of phase 21a's meshed run, the std pair's
+`sim_launches` those of phase 18's LUT run), the card, and last the
+device line.
 """
 
 import json
@@ -1436,6 +1456,222 @@ def de_explorers(dev, smi):
         f"10 stages) in {reuse_s:.2f} s: {lines[-1]}; on {smi}")
 
 
+def mesh_rank(rank, port, codec_path, out_path):
+    """Phase 21b, one of two spawned processes: a gloo group on localhost,
+    one slot on cuda:0 a rank, the headline codec from phase 2's file, and
+    the meshed simulator run of 21a."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lut_ldpc_torch.decoder import codec_from_arrays
+    from lut_ldpc_torch.parallel import dp_mesh
+    from lut_ldpc_torch.sim import BERSim
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        with np.load(codec_path) as z:
+            codec = codec_from_arrays(dict(z))
+        mesh = dp_mesh(devices=["cuda:0"])
+        sim = BERSim(mesh_config(), codec.graph, codec=codec, mesh=mesh)
+        t0 = time.perf_counter()
+        res = sim.run(seed=0, verbose=False)
+        torch.cuda.synchronize()
+        out = dict(counters=counters_of(res), run_s=time.perf_counter() - t0)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_config(snr_db=2.0, batches=6, nfers=10**9):
+    import numpy as np
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.sim import BERSimConfig, LDPCConfig, SimConfig
+
+    B = bench.BATCH
+    return BERSimConfig(sim=SimConfig(SNRdB=np.array([snr_db]), Nframes=batches * B,
+                                      Nfers=nfers, batch_size=B),
+                        ldpc=LDPCConfig(zero_codeword=True))
+
+
+def counters_of(res):
+    return {name: int(getattr(res, name)[0]) for name in
+            ("frames", "data_bits", "uncoded_bits", "frame_errors", "data_bit_errors",
+             "uncoded_bit_errors", "decode_iters")}
+
+
+def mesh_phase(dev, smi, codec, codec_path, results):
+    """Phase 21: the data-parallel mesh (a, b), the DE explorer over two
+    slots (c), the entry points (d) and PEG (e).  Returns the mesh line."""
+    import multiprocessing
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import _native, bench, entry
+    from lut_ldpc_torch.cli import peg_gen
+    from lut_ldpc_torch.core.ensemble import LDPCEnsemble
+    from lut_ldpc_torch.decoder import HybridLUTDecoder
+    from lut_ldpc_torch.decoder import nvcc
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.design import DELutGPU
+    from lut_ldpc_torch.ops.pmf import snr2sig
+    from lut_ldpc_torch.parallel import dp_mesh
+    from lut_ldpc_torch.sim import BERSim
+
+    B, nb, secs, runs = bench.BATCH, 6, {}, {}
+    two = dp_mesh(devices=["cuda:0"] * 2)
+
+    def timed_run(sim, seed=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run(seed=seed, verbose=False)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # 21a: the headline simulator step over two slots on the card
+    t0 = time.perf_counter()
+    one = BERSim(mesh_config(), codec.graph, dev, codec=codec)
+    meshed = BERSim(mesh_config(), codec.graph, codec=codec, mesh=two)
+    for sim in (one, meshed):
+        if not isinstance(sim.decoder, HybridLUTDecoder) or sim.decoder.S != 32:
+            raise AssertionError(f"21a: expected the headline HybridLUTDecoder, got "
+                                 f"{type(sim.decoder).__name__}")
+    one.config.sim.Nframes = meshed.config.sim.Nframes = 2 * B  # warm-up
+    one.run(seed=9, verbose=False)
+    meshed.run(seed=9, verbose=False)
+    one.config.sim.Nframes = meshed.config.sim.Nframes = nb * B
+    res1, s1 = timed_run(one)
+    qk.reset_launches()
+    res2, s2 = timed_run(meshed)
+    tab = meshed.decoder.pre.tables
+    for name, per_pass in (("cn_qc_pass", len(tab.cn_runs)), ("vn_qc_pass", len(tab.vn_runs))):
+        results[name]["mesh_launches"] = qk.LAUNCHES[name]
+        frames_only(name, per_pass)
+    runs["one_slot"], runs["two_slots"] = counters_of(res1), counters_of(res2)
+    if runs["one_slot"] != runs["two_slots"] or runs["one_slot"]["frames"] != nb * B:
+        raise AssertionError(f"21a: two slots {runs['two_slots']} against one slot "
+                             f"{runs['one_slot']}")
+    # an Nfers stop inside a group: at 1.5 dB, the first even batch index
+    # j >= 2 with frame errors; Nfers = the errors of batches 0 .. j-1, so
+    # the run counts j + 1 (odd) batches and drops batch j + 1 of its group
+    sigma = torch.tensor(float(snr2sig(one.rate, 1.5)), dtype=torch.float32, device=dev)
+    fe = [one.step(0, 0, bb, sigma)["frame_errors"] for bb in range(nb)]
+    stops = [j for j in range(2, nb, 2) if fe[j] > 0]
+    if not stops:
+        raise AssertionError(f"21a: no frame errors at an even batch index at 1.5 dB: {fe}")
+    j = stops[0]
+    nfers = sum(fe[:j])
+    stop_one = BERSim(mesh_config(1.5, nb, nfers), codec.graph, dev, codec=codec)
+    stop_two = BERSim(mesh_config(1.5, nb, nfers), codec.graph, codec=codec, mesh=two)
+    r_one, r_two = (counters_of(s.run(seed=0, verbose=False)) for s in (stop_one, stop_two))
+    runs["stop_one_slot"], runs["stop_two_slots"] = r_one, r_two
+    if r_one != r_two or r_one["frames"] != (j + 1) * B:
+        raise AssertionError(f"21a: Nfers {nfers} stop: two slots {r_two}, one slot {r_one}, "
+                             f"expected {j + 1} batches")
+    secs["a"] = time.perf_counter() - t0
+    del one, meshed, stop_one, stop_two
+    torch.cuda.empty_cache()
+    log(f"# phase 21a: BERSim B={B}, 2 dB, {nb} batches: one slot {s1 * 1e3 / nb:.3f} ms a "
+        f"batch, two slots on cuda:0 {s2 * 1e3 / nb:.3f} ms a batch, counters equal "
+        f"{runs['one_slot']}; QC launches of the meshed run "
+        f"{ {n: c for n, c in qk.LAUNCHES.items() if c} }; 1.5 dB Nfers {nfers} stop after "
+        f"{j + 1} batches (frame errors a batch {fe}) equal on one and two slots; "
+        f"{secs['a']:.1f}s on {smi}")
+
+    # 21b: the same run over two processes of one slot each (gloo)
+    t0 = time.perf_counter()
+    libs = sorted(os.listdir(nvcc.BUILD_DIR))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp()
+    out_path = os.path.join(tmp, "rank0.json")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, codec_path, out_path))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=240)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0, 0]:
+        raise AssertionError(f"21b: the ranks exited with {codes}")
+    with open(out_path) as f:
+        got = json.load(f)
+    runs["two_processes"] = got["counters"]
+    if got["counters"] != runs["two_slots"]:
+        raise AssertionError(f"21b: two processes {got['counters']} against two slots "
+                             f"{runs['two_slots']}")
+    if sorted(os.listdir(nvcc.BUILD_DIR)) != libs:
+        raise AssertionError("21b: the ranks built a library instead of reusing phase 2's")
+    secs["b"] = time.perf_counter() - t0
+    log(f"# phase 21b: two processes on cuda:0 (gloo), the headline codec from phase 2's "
+        f"file: counters equal 21a's; rank 0's run {got['run_s']:.2f}s "
+        f"({got['run_s'] * 1e3 / nb:.3f} ms a batch), no library built; {secs['b']:.1f}s")
+
+    # 21c: the DE explorer over two slots, the JAX mesh tests' shapes
+    t0 = time.perf_counter()
+    ens = LDPCEnsemble(np.array([3]), np.array([1.0]), np.array([6]), np.array([1.0]))
+    kw = dict(Pe_max=1e-6, max_ni_de_iters=30)
+    sig = np.linspace(0.80, 0.92, 11)
+    a1 = DELutGPU(ens, maxiter_de=60, device=dev, **kw).evolve_batch(sig)
+    a2 = DELutGPU(ens, maxiter_de=60, mesh=two, **kw).evolve_batch(sig)
+    M = 12
+    reuse = np.zeros((5, M), dtype=bool)
+    for i in range(1, 5):
+        reuse[i, 2 * i] = True
+    p1 = DELutGPU(ens, maxiter_de=M, device=dev, **kw).prerank_reuse(0.85, reuse)
+    p2 = DELutGPU(ens, maxiter_de=M, mesh=two, **kw).prerank_reuse(0.85, reuse)
+    for what, x, y in (("evolve_batch", a1, a2), ("prerank_reuse", p1, p2)):
+        if not all(np.array_equal(u, v) for u, v in zip(x, y)):
+            raise AssertionError(f"21c: {what} over two slots {y} against unmeshed {x}")
+    secs["c"] = time.perf_counter() - t0
+    log(f"# phase 21c: DELutGPU (3,6) q4 over two slots on cuda:0: evolve_batch at 11 "
+        f"points (decisions {a2[0].astype(int).tolist()}) and prerank_reuse at 5 rows "
+        f"(it_hit {p2[1].tolist()}) array_equal to the unmeshed explorer; {secs['c']:.1f}s")
+
+    # 21d: the entry points
+    t0 = time.perf_counter()
+    dec, args = entry.entry(dev)
+    out = dec(*args)
+    dec_c, args_c = entry.entry("cpu")
+    same(tuple(o.cpu() for o in out), dec_c(*args_c), "21d: entry on the card and the CPU")
+    entry.dryrun_multichip(2, "cuda", devices=["cuda:0"] * 2)
+    secs["d"] = time.perf_counter() - t0
+    log(f"# phase 21d: entry('cuda') decodes as on the CPU (ok {float(out[1].float().mean())}"
+        f"); dryrun_multichip(2) on ['cuda:0'] * 2 passed; {secs['d']:.1f}s")
+
+    # 21e: PEG through the port's native library
+    t0 = time.perf_counter()
+    lib = _native.get_lib()
+    if lib is None or not hasattr(lib, "peg_construct"):
+        raise AssertionError("21e: the native PEG library did not build")
+    alist = os.path.join(tmp, "peg1000.alist")
+    if peg_gen.main(["500", "1000", alist, "ensembles/rate0.50_dv03_dc06.ens"]) != 0:
+        raise AssertionError("21e: peg_gen failed")
+    secs["e"] = time.perf_counter() - t0
+    log(f"# phase 21e: peg_gen (3,6) N=1000 through {os.path.basename(lib._name)}; "
+        f"{secs['e']:.1f}s")
+    return dict(counters=runs, ms_per_batch=dict(one_slot=s1 * 1e3 / nb,
+                                                 two_slots_one_card=s2 * 1e3 / nb,
+                                                 two_processes_one_card=got["run_s"] * 1e3 / nb),
+                seconds=secs, card=smi)
+
+
 def check_worker_golden(what, golden, frame0, max_iters):
     import numpy as np
 
@@ -1461,6 +1697,8 @@ def main():
 
     import multiprocessing
     import os
+    import shutil
+    import tempfile
 
     import numpy as np
 
@@ -1476,6 +1714,10 @@ def main():
     head_codec = bench.build_codec()
     log(f"# phase 2: headline codec designed in {time.perf_counter() - t0:.1f}s "
         f"(N={head_codec.nvar}, k={head_codec.k}, {head_codec.max_iters} iterations)")
+    # saved for phase 21b's ranks, which load it instead of designing it
+    tmp = tempfile.mkdtemp()
+    head_path = os.path.join(tmp, "headline.npz")
+    head_codec.save(head_path)
     t0 = time.perf_counter()
     codec = b64.build_codec("peg")
     log(f"#   PEG codec designed in {time.perf_counter() - t0:.1f}s (N={codec.nvar}, "
@@ -1547,6 +1789,13 @@ def main():
     t0 = time.perf_counter()
     de_explorers(dev, smi)
     log(f"# phase 20 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_line = mesh_phase(dev, smi, head_codec, head_path, results)
+    shutil.rmtree(tmp)
+    log(f"# phase 21 took {time.perf_counter() - t0:.1f}s")
+
+    print(json.dumps({"mesh": mesh_line}))
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],

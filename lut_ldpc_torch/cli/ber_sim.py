@@ -1,13 +1,18 @@
-"""ber_sim CLI: INI-driven Monte-Carlo BER simulation on one device (port
-of lut_ldpc_tpu/cli/ber_sim.py).
+"""ber_sim CLI: INI-driven Monte-Carlo BER simulation (port of
+lut_ldpc_tpu/cli/ber_sim.py).
 
 Mirrors the reference's prog/ber_sim.cpp: -p/--params INI file, -s/--seed,
 -b/--basedir, -c/--custom-name; the presence of a [LUT] vs [BP] section
 selects the decoder family.  --device names the device (default cuda; a
 CPU run is asked for with --device cpu, and CUDA asked for where there is
-none raises).
+none raises).  --mesh N runs data-parallel over N slots of that device type
+(N CPU slots for --device cpu, cards cuda:0 .. cuda:N-1 for cuda, which
+raises where fewer exist); under torchrun, which sets RANK, WORLD_SIZE and
+MASTER_ADDR, the processes first join a gloo group and N counts the slots
+of all of them:
 
     python -m lut_ldpc_torch.cli.ber_sim -p params/ber.ini.bp.example -s 0
+    torchrun --nproc_per_node 4 -m lut_ldpc_torch.cli.ber_sim -p <ini> --mesh 4
 
 Results land in <results_dir>/<prefix>_N..._R..._maxIter..._zcw..._frames...
 as npz + JSON and as the reference's .it file, with a copy of the params
@@ -44,13 +49,20 @@ def main(argv=None) -> int:
                     help="append this string to the results file name")
     ap.add_argument("--device", default="cuda",
                     help="torch device to simulate on (cuda, cuda:N or cpu)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="data-parallel over N slots of --device's type (0 = one device)")
     args = ap.parse_args(argv)
 
+    from ..parallel import dp_mesh, multihost_init
     from ..sim import parse_ini, run_from_config
 
+    multihost_init()
     cfg = parse_ini(args.params)
-    results, sim = run_from_config(cfg, args.device, codes_root=args.basedir,
-                                   seed=args.seed)
+    mesh = dp_mesh(args.mesh, args.device) if args.mesh else None
+    results, sim = run_from_config(cfg, None if mesh else args.device,
+                                   codes_root=args.basedir, seed=args.seed, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return 0  # every rank holds the same counters: rank 0 writes them
 
     out_base = gen_filename(cfg, sim.graph.nvar, sim.rate, args.custom_name)
     out_dir = os.path.join(args.basedir, cfg.sim.results_dir, out_base)

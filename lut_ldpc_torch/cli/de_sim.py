@@ -10,7 +10,9 @@ replacing the reference's one-std::thread-per-point fan-out.  With
 `accelerator_sweep = 1` the batched float32 explorers
 (design/de_lut_gpu.py, design/de_bp_gpu.py) narrow each search on
 --device (default cuda; CUDA asked for where there is none raises) before
-the f64 host bisection finishes inside their bracket.
+the f64 host bisection finishes inside their bracket; --mesh N shards the
+LUT explorer's grids over N slots of --device's type (N cards for cuda,
+which raises where fewer exist).
 
     python -m lut_ldpc_torch.cli.de_sim -p params/de.ini.example
 """
@@ -55,7 +57,7 @@ def build_reuse_vec(maxiter_de: int, reuse_iters: int) -> np.ndarray:
     return reuse
 
 
-def de_sim_lut(cp, out, device="cuda") -> None:
+def de_sim_lut(cp, out, device="cuda", mesh_n: int = 0) -> None:
     from ..core.ensemble import LDPCEnsemble
     from ..design.de import ARI, DELut, get_lam2stable_lut
     from ..design.templates import get_lut_tree_templates
@@ -155,12 +157,17 @@ def de_sim_lut(cp, out, device="cuda") -> None:
                 # Nq_Msg from the host engine's (possibly Nq_msg_vec-
                 # overridden) resolution vector, not the qbits row;
                 # non-uniform vectors run the explorer's segmented path
+                mesh = None
+                if mesh_n:
+                    from ..parallel import dp_mesh
+
+                    mesh = dp_mesh(mesh_n, device.type)
                 tde = DELutGPU(
                     ens, 2 ** int(qb_cha), de.Nq_Msg_vec,
                     maxiter_de=maxiter_de, Pe_max=Pe_max,
                     max_ni_de_iters=max_ni_de_iters, LLR_max=LLR_max,
                     Nq_fine=Nq_fine, tree_mode=tree_mode, strategy=strategy,
-                    min_lut=min_lut, device=device)
+                    min_lut=min_lut, device=None if mesh else device, mesh=mesh)
                 tde.thr_min, tde.thr_max = thr_min, thr_max
                 lo = tde.threshold(points=17, rounds=2)
                 win = (thr_max - thr_min) / 16**2
@@ -332,6 +339,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the accelerator_sweep explorers "
                          "(cuda, cuda:N or cpu)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="shard accelerator_sweep grids over N slots of --device's "
+                         "type (0 = one device)")
     args = ap.parse_args(argv)
     from ..device import resolve_device
 
@@ -342,7 +352,7 @@ def main(argv=None) -> int:
     with open(args.params) as f:
         cp.read_string(f.read())
     if cp.has_section("LUT"):
-        de_sim_lut(cp, None, device)
+        de_sim_lut(cp, None, device, mesh_n=args.mesh)
     elif cp.has_section("BP"):
         de_sim_bp(cp, None, device)
     else:

@@ -112,6 +112,7 @@ def cn_block_pass(m3: torch.Tensor, n_real: int, out=None):
     a new one."""
     d, n_pad, B = _check_block(m3, n_real)
     if m3.device.type == "cpu":
+        qk.PLAIN_RUNS["cn_block_pass"] += 1
         return cn_block_pass_ref(m3, n_real, out)
     qk._check_grid(n_pad, B)
     out = _out(m3, out)
@@ -284,6 +285,7 @@ def run_vn_block(m3: torch.Tensor, cha: torch.Tensor, prog: VNBlockProgram,
     d, n_pad, B = _check_vn(m3, cha, prog, it, n_real)
     dev = m3.device
     if dev.type == "cpu":
+        qk.PLAIN_RUNS["vn_block_pass"] += 1
         return run_vn_block_ref(m3, cha, prog, it, n_real)
     qk._check_grid(n_pad, B)
     out = torch.empty_like(m3)
@@ -379,6 +381,7 @@ def vn_blocks_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int, progs,
     B = _check_blocks(m_cn, cha, it, progs, tables)
     dev = m_cn.device
     if dev.type == "cpu":
+        qk.PLAIN_RUNS["vn_block_pass"] += 1
         return vn_blocks_pass_ref(m_cn, cha, it, progs, tables)
     qk._check_grid(tables.nvar_pad, B)
     m_vn = torch.empty((tables.rows_vn, B), dtype=m_cn.dtype, device=dev)

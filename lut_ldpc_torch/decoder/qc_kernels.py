@@ -39,6 +39,8 @@ sha256 over the text of its sources and the compiler flags
 ``CLASS_LAUNCHES`` the launches of the per-degree kernels these made, one
 for each call of a per-degree entry point that returned 0 (an entry point
 with nothing to launch returns ``NOTHING_TO_LAUNCH``, which counts none).
+``PLAIN_RUNS`` counts the wrappers' calls on CPU tensors, which run the
+plain versions.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from .params import QCTables, StdTables, VNParams
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
            "build_kernels", "start_builds", "unit_path", "ptxas_cn_frames",
-           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "NOTHING_TO_LAUNCH",
+           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "PLAIN_RUNS", "NOTHING_TO_LAUNCH",
            "reset_launches", "UNITS", "KERNEL_SOURCE", "CN_SOURCE"]
 
 KERNEL_SOURCE = "qc_kernels.cu"  # the CN block kernel and the table-driven witnesses
@@ -83,6 +85,8 @@ LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
 # the CN block kernel; several a pass); a pass through a table-driven
 # witness adds nothing here
 CLASS_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# wrapper calls on CPU tensors (the plain versions ran)
+PLAIN_RUNS = dict.fromkeys(LAUNCHES, 0)
 
 _lock = threading.Lock()
 _builds: dict = {}  # unit -> nvcc.Build
@@ -90,7 +94,7 @@ _libs: dict = {}    # unit -> loaded library
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES):
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, PLAIN_RUNS):
         for k in counts:
             counts[k] = 0
 
@@ -289,6 +293,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
     dev = m_vn.device
     _check_msgs(m_vn, tables.rows_vn, tables.cn_src.device)
     if dev.type == "cpu":
+        PLAIN_RUNS["cn_qc_pass"] += 1
         return cn_qc_pass_ref(m_vn, tables)
     B = m_vn.shape[1]
     _check_cn_degree(tables.max_dc, generic)
@@ -432,6 +437,7 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
     if not 0 <= it < params.num_iters:
         raise IndexError(f"iteration {it} outside the spec's {params.num_iters}")
     if dev.type == "cpu":
+        PLAIN_RUNS["vn_qc_pass"] += 1
         return vn_qc_pass_ref(m_cn, cha, it, params, tables)
     R = tables.vn_src.shape[0]
     _check_grid(R * tables.Z, B)
@@ -532,6 +538,7 @@ def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
     table-driven kernel instead.  CPU tensors run cn_std_pass_ref."""
     _check_msgs(m_vn, tables.rows_vn, tables.cn_cls.device)
     if m_vn.device.type == "cpu":
+        PLAIN_RUNS["cn_std_pass"] += 1
         return cn_std_pass_ref(m_vn, tables)
     _check_cn_degree(tables.max_dc, generic)
     B = m_vn.shape[1]
@@ -595,6 +602,7 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
     if [c.degree for c in params.classes[: len(blocks)]] != [b.degree for b in blocks]:
         raise ValueError("params and tables describe different degree classes")
     if dev.type == "cpu":
+        PLAIN_RUNS["vn_std_pass"] += 1
         return vn_std_pass_ref(m_c2v, cha, it, params, tables)
     _check_grid(tables.nvar_pad, B)
     m_vn = torch.empty_like(m_c2v)

@@ -28,8 +28,15 @@ torch ops on an explicit device:
 Float32, as the JAX explorer on every platform: a grid locates the
 threshold to about 1e-3 in sigma, and duplicate-LLR label merging is
 skipped.  threshold() runs coarse-to-fine grid rounds and can hand the
-final bracket to a host de.DELut (host=, refine_host=True).  The JAX
-explorer's `mesh` (sharding the grid over devices) is not ported yet.
+final bracket to a host de.DELut (host=, refine_host=True).
+
+With a mesh (``mesh=``, a lut_ldpc_torch.parallel.DPMesh) evolve_batch and
+prerank_reuse wrap-pad the sigma grid or the candidate rows to a multiple
+of the slot count, as the JAX explorer does under shard_map, split them
+into contiguous shards, evolve each slot's shard on the slot's device (a
+CUDA graph captured per shard shape) and concatenate the shards in order,
+across processes through a gloo all_gather.  Points are independent, so
+the meshed results are equal to the unmeshed batch's.
 """
 
 from __future__ import annotations
@@ -104,6 +111,36 @@ def _subtree_keys(sched) -> list:
     return keys
 
 
+# On CUDA, torch's reduction and scan kernels split a row's work by the
+# shape of the whole tensor, so a row's rounding could change with the batch
+# width, and a meshed shard would differ from the unmeshed batch in the last
+# bit.  The two helpers below fix the order there: elementwise adds in a
+# fixed tree, which round each element the same way at any width.  On the
+# CPU torch's own kernels sum each row in order, whatever the width.
+
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim` (a fixed pairwise tree on CUDA)."""
+    if x.device.type != "cuda":
+        return x.sum(dim=dim)
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] + x[h:2 * h]
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
+
+
+def _cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along dim 1 (a Hillis-Steele scan on CUDA)."""
+    if x.device.type != "cuda":
+        return x.cumsum(dim=1)
+    step = 1
+    while step < x.shape[1]:
+        x = torch.cat([x[:, :step], x[:, step:] + x[:, :-step]], dim=1)
+        step *= 2
+    return x
+
+
 def _xlog2y(x, y):
     return torch.where(x > 0, x * (torch.log(torch.where(y > 0, y, 1.0)) / _LOG2), 0.0)
 
@@ -159,8 +196,8 @@ class BatchedQuantizer:
         pu = ps[:, H:]
         plr = ps[:, :H].flip(1)
         zero = ps.new_zeros(S, 1)
-        cu0 = torch.cat([zero, pu.cumsum(dim=1)], dim=1)
-        cl0 = torch.cat([zero, plr.cumsum(dim=1)], dim=1)
+        cu0 = torch.cat([zero, _cumsum(pu)], dim=1)
+        cl0 = torch.cat([zero, _cumsum(plr)], dim=1)
         # g[a, ap] = partial MI of interval [ap..a] (ap <= a)
         pp = cu0[:, 1:, None] - cu0[:, None, :-1]   # (S, a, ap)
         pm = cl0[:, 1:, None] - cl0[:, None, :-1]
@@ -188,7 +225,7 @@ class BatchedQuantizer:
     @staticmethod
     def interval_sums(masses: torch.Tensor, astar: torch.Tensor) -> torch.Tensor:
         """Per-interval sums: masses (S, H), astar (S, Kh+1) -> (S, Kh)."""
-        c0 = torch.cat([masses.new_zeros(masses.shape[0], 1), masses.cumsum(dim=1)], dim=1)
+        c0 = torch.cat([masses.new_zeros(masses.shape[0], 1), _cumsum(masses)], dim=1)
         return c0.gather(1, astar[:, 1:]) - c0.gather(1, astar[:, :-1])
 
     def labels(self, astar: torch.Tensor, H: int, K: int) -> torch.Tensor:
@@ -221,7 +258,7 @@ class BatchedQuantizer:
     def apply_q(self, p: torch.Tensor, Q: torch.Tensor, K: int) -> torch.Tensor:
         """Re-apply a stored label map: p_out[k] = sum_m p[m] * [Q[m] = k]."""
         onehot = Q[:, :, None] == self._arange(K)[None, None, :]
-        return torch.where(onehot, p[:, :, None], 0.0).sum(dim=1)
+        return _tree_sum(torch.where(onehot, p[:, :, None], 0.0), 1)
 
 
 def _inverse(idx: torch.Tensor) -> torch.Tensor:
@@ -231,7 +268,7 @@ def _inverse(idx: torch.Tensor) -> torch.Tensor:
 
 
 def _normalize(q):
-    return q / q.sum(dim=1, keepdim=True)
+    return q / _tree_sum(q, 1)[:, None]
 
 
 def _weighted_sum(weights, pmfs):
@@ -247,9 +284,12 @@ class DELutGPU:
     evolve_batch(sigmas) evaluates a whole noise grid on `device` (default
     the card; "cpu" where asked for); threshold() runs a coarse-to-fine
     grid search with optional f64 host refinement (pass a host de.DELut
-    via host=).  Attributes a caller may change: sync_every, the
-    iterations between host reads of the done flag, and graph, whether a
-    loop's body is replayed as a CUDA graph (on CUDA only; default there).
+    via host=).  mesh: a parallel.DPMesh that evolve_batch and
+    prerank_reuse shard their points over (`device` is then None or the
+    device of this process's first slot).  Attributes a caller may
+    change: sync_every, the iterations between host reads of the done
+    flag, and graph, whether a loop's body is replayed as a CUDA graph (on
+    CUDA only; default there).
     """
 
     def __init__(self, ens, Nq_Cha: int = 16, Nq_Msg=16,
@@ -257,7 +297,7 @@ class DELutGPU:
                  max_ni_de_iters: int = 1, LLR_max: float = 25.0,
                  Nq_fine: int = 5000, tree_mode: str = "auto_bin_balanced",
                  strategy: str = JOINT_ROOT, host=None, min_lut: bool = True,
-                 device="cuda"):
+                 device=None, mesh=None):
         if strategy not in (INDIVIDUAL, JOINT_ROOT, JOINT_LEVEL):
             raise ValueError(
                 f"DELutGPU supports individual/joint_root/joint_level "
@@ -288,7 +328,19 @@ class DELutGPU:
         self.host = host
         self.thr_min = rate_to_shannon_thr(ens.rate()) * 1e-4
         self.thr_max = rate_to_shannon_thr(ens.rate())
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            self.device = mesh.devices[0]
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's first slot "
+                                 f"({self.device})")
+        # explorers of this process's other slot devices, made at first use
+        self._kw = dict(Nq_Cha=Nq_Cha, Nq_Msg=Nq_Msg, maxiter_de=maxiter_de, Pe_max=Pe_max,
+                        max_ni_de_iters=max_ni_de_iters, LLR_max=LLR_max, Nq_fine=Nq_fine,
+                        tree_mode=tree_mode, strategy=strategy, min_lut=min_lut)
+        self._on = {self.device: self}
         self.sync_every = 8
         self.graph = self.device.type == "cuda"
         self.stats = LoopStats()
@@ -329,8 +381,8 @@ class DELutGPU:
     @staticmethod
     def _min_comb(a, b):
         # min of two magnitudes: c[k] = a[k]*P(B>=k) + b[k]*P(A>k)
-        b_suf = b.flip(1).cumsum(dim=1).flip(1)
-        a_suf = a.flip(1).cumsum(dim=1).flip(1)
+        b_suf = _cumsum(b.flip(1)).flip(1)
+        a_suf = _cumsum(a.flip(1)).flip(1)
         a_strict = torch.cat([a_suf[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
         return a * b_suf + b * a_strict
 
@@ -376,11 +428,11 @@ class DELutGPU:
         p1 = (pb.flip(1)[:, :, None] * pa.flip(1)[:, None, :]).reshape(S, -1)
         prod0 = 0.5 * (p0 + p1)
         prod0 = torch.cat([prod0, prod0.new_zeros(S, 1)], dim=1)
-        return prod0[:, table].sum(dim=2)
+        return _tree_sum(prod0[:, table], 2)
 
     @staticmethod
     def _pe(v2c):
-        return v2c[:, : v2c.shape[1] // 2].sum(dim=1)
+        return _tree_sum(v2c[:, : v2c.shape[1] // 2], 1)
 
     def _quantize(self, p, K):
         return self.quant.quantize_q(p, K, with_q=False)[0]
@@ -753,12 +805,44 @@ class DELutGPU:
         if reuse_mat[:, 0].any():
             raise ValueError("reuse not possible for initial iteration")
         C = reuse_mat.shape[0]
-        p_cha, p_msg = self._channel_pmfs(float(sig))
-        cha = p_cha[None].expand(C, -1).contiguous()
-        v2c = p_msg[None].expand(C, -1).contiguous()
-        Pe, it_hit = self._evolve_reuse(
-            v2c, cha, torch.as_tensor(reuse_mat, device=self.device), float(pmax))
-        return Pe.cpu().numpy(), it_hit.cpu().numpy()
+        rows, w = self._pad(reuse_mat)
+
+        def run(tde, i):
+            part = rows[i * w:(i + 1) * w]
+            p_cha, p_msg = tde._channel_pmfs(float(sig))
+            cha = p_cha[None].expand(len(part), -1).contiguous()
+            v2c = p_msg[None].expand(len(part), -1).contiguous()
+            return tde._evolve_reuse(v2c, cha, torch.as_tensor(part, device=tde.device),
+                                     float(pmax))
+        return self._over_slots(run, C)
+
+    # -- the mesh ---------------------------------------------------------
+    def _pad(self, rows: np.ndarray):
+        """Rows wrap-padded to a multiple of the slot count (the JAX
+        explorer's np.resize), and the rows of one slot's shard."""
+        n = 1 if self.mesh is None else len(self.mesh)
+        padded = np.resize(rows, (-(-len(rows) // n) * n, *rows.shape[1:]))
+        return padded, len(padded) // n
+
+    def _explorer(self, dev: torch.device) -> "DELutGPU":
+        if dev not in self._on:
+            sub = DELutGPU(self.ens, **self._kw, host=self.host, device=dev)
+            sub.stats = self.stats
+            self._on[dev] = sub
+        sub = self._on[dev]
+        sub.sync_every, sub.graph = self.sync_every, self.graph and dev.type == "cuda"
+        return sub
+
+    def _over_slots(self, run, n_out: int) -> tuple:
+        """run(explorer, shard index) -> a tuple of (w,) tensors, for this
+        process's shards (all of them without a mesh); the outputs
+        concatenated in shard order (gathered across processes) and cut to
+        the first n_out rows, as numpy arrays."""
+        if self.mesh is None:
+            return tuple(t.cpu().numpy()[:n_out] for t in run(self, 0))
+        outs = [run(self._explorer(self.mesh.slots[i].device), i) for i in self.mesh.local]
+        return tuple(self.mesh.gather([o[j].cpu().numpy() for o in outs]).reshape(-1)[:n_out]
+                     for j in range(len(outs[0])))
 
     # ------------------------------------------------------------------
     def _channel_pmfs(self, s: float):
@@ -783,9 +867,12 @@ class DELutGPU:
 
     def evolve_batch(self, sigmas) -> tuple[np.ndarray, np.ndarray]:
         """(converged mask, final Pe) per sigma."""
-        v2c, cha = self.channel_pmfs(sigmas)
-        ach, Pe, _ = self.evolve(v2c, cha)
-        return ach.cpu().numpy(), Pe.cpu().numpy()
+        sig = np.asarray(sigmas, np.float64)
+        grid, w = self._pad(sig)
+
+        def run(tde, i):
+            return tde.evolve(*tde.channel_pmfs(grid[i * w:(i + 1) * w]))[:2]
+        return self._over_slots(run, len(sig))
 
     def threshold(self, points: int = 17, rounds: int = 3,
                   refine_host: bool = False) -> float:

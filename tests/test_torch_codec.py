@@ -184,5 +184,5 @@ def test_native_library_is_the_ports_own():
     lib = _native.get_lib()
     if lib is None:
         pytest.skip("no C++ compiler: numpy design path")
-    assert os.path.dirname(_native._LIB).endswith(os.path.join("build", "torch_kernels"))
-    assert os.path.samefile(lib._name, _native._LIB)
+    assert os.path.dirname(_native.lib_path()).endswith(os.path.join("build", "torch_kernels"))
+    assert os.path.samefile(lib._name, _native.lib_path())

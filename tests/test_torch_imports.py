@@ -1,7 +1,8 @@
 """The port imports no jax and nothing of the JAX package: statically, and
 in processes where neither can be imported at all (as on a GPU machine
 that has neither), which design and decode a QC codec and a
-phantom-completed one, simulate, and run the DE explorers and de_sim."""
+phantom-completed one, simulate (also over a mesh), run the DE explorers
+and de_sim, the entry points, PEG and the numpy CLIs."""
 
 import ast
 import os
@@ -178,6 +179,66 @@ def test_designs_with_jax_blocked(tmp_path):
         assert de_sim.main(["-p", ini, "--device", "cpu"]) == 0
         with open(os.path.join(root, "report.txt")) as f:
             assert "Threshold(s) found" in f.read()
+        assert sys.modules["jax"] is None
+        assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
+def test_mesh_peg_and_host_tools_with_jax_blocked(tmp_path):
+    """The mesh (simulator and DE explorer over CPU slots), the entry
+    points, PEG and the numpy CLIs in a process where jax, jaxlib and
+    lut_ldpc_tpu cannot be imported."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["lut_ldpc_tpu"] = None
+        import os
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        from lut_ldpc_torch.cli import (alist2ens, dat2alist, dump_stimuli, ens2deg,
+                                        peg_gen)
+        from lut_ldpc_torch.core.ensemble import LDPCEnsemble
+        from lut_ldpc_torch.core.tanner import TannerGraph
+        from lut_ldpc_torch.decoder import LUTCodec
+        from lut_ldpc_torch.design import DELutGPU
+        from lut_ldpc_torch.entry import entry
+        from lut_ldpc_torch.parallel import dp_mesh, multihost_init
+        from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+        root = sys.argv[1]
+        ens = "ensembles/rate0.50_dv03_dc06.ens"
+        alist = os.path.join(root, "c.alist")
+        assert peg_gen.main(["48", "96", alist, ens]) == 0
+        assert alist2ens.main([alist, os.path.join(root, "c.ens")]) == 0
+        assert ens2deg.main([ens, os.path.join(root, "c.deg")]) == 0
+        dat = os.path.join(root, "h.dat")
+        with open(dat, "w") as f:
+            f.write("4\\n2\\n3\\n1 2 0\\n3 4 0\\n")
+        assert dat2alist.main([dat, os.path.join(root, "h.alist")]) == 0
+        codec = LUTCodec.design(TannerGraph.from_alist(alist), 0.85**2, max_iters=6,
+                                Nq_Cha=16, Nq_Msg=16)
+        codec.save(os.path.join(root, "c.npz"))
+        assert dump_stimuli.main([os.path.join(root, "c.npz"), "--frames", "2"]) == 0
+        assert multihost_init() is False
+        cfg = BERSimConfig(sim=SimConfig(SNRdB=np.array([2.0]), Nframes=64, batch_size=16),
+                           ldpc=LDPCConfig(zero_codeword=True))
+        r1 = BERSim(cfg, codec.graph, "cpu", codec=codec).run(seed=0, verbose=False)
+        r2 = BERSim(cfg, codec.graph, codec=codec, mesh=dp_mesh(2, "cpu")).run(
+            seed=0, verbose=False)
+        assert r1.frame_errors.tolist() == r2.frame_errors.tolist()
+        e36 = LDPCEnsemble.read(ens)
+        ach, _ = DELutGPU(e36, maxiter_de=30, max_ni_de_iters=30,
+                          mesh=dp_mesh(2, "cpu")).evolve_batch([0.7, 1.0])
+        assert ach.tolist() == [True, False]
+        dec, args = entry("cpu")
+        assert dec(*args)[0].shape == (16, 128)
         assert sys.modules["jax"] is None
         assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
         print("OK")

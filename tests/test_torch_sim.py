@@ -42,7 +42,7 @@ from lut_ldpc_torch.ops.pmf import snr2sig
 from lut_ldpc_torch.sim import channel as tchannel
 from lut_ldpc_torch.sim.ber_sim import run_from_config
 
-from torch_carry import carry
+from torch_carry import carry, jax_stream
 from util_codes import random_regular_H
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,34 +75,6 @@ def _cfgs(snrs, nframes=128, batch=64, nfers=10**9, zero=True, **sim_kw):
                             Nfers=nfers, batch_size=batch, **sim_kw),
             ldpc=m.LDPCConfig(zero_codeword=zero))
     return make(jsim), make(tsim)
-
-
-def jax_stream(cfg, k, nvar, gen_T, seed):
-    """The channel hook: the JAX simulator's draw of (ss, bb), as its split
-    step's gen computes it (ber_sim.py:181-197)."""
-    B, zero_cw = cfg.sim.batch_size, cfg.ldpc.zero_codeword
-    gT = None if gen_T is None else jnp.asarray(gen_T, jnp.int32)
-
-    @jax.jit
-    def gen(key, sigma):
-        kbits, knoise = jax.random.split(key)
-        if zero_cw:
-            u = jnp.zeros((B, k), dtype=jnp.uint8)
-            x = jnp.zeros((B, nvar), dtype=jnp.uint8)
-        else:
-            u = jax.random.bernoulli(kbits, 0.5, (B, k)).astype(jnp.uint8)
-            parity = (jax.lax.dot_general(u.astype(jnp.int32), gT, (((1,), (0,)), ((), ())),
-                                          preferred_element_type=jnp.int32) & 1)
-            x = jnp.concatenate([u, parity.astype(jnp.uint8)], axis=-1)
-        llr, y = jchannel.bpsk_awgn_llr(knoise, x, sigma)
-        return u, llr, y
-
-    base = jax.random.PRNGKey(seed + cfg.sim.rand_seed_offset)
-
-    def hook(ss, bb, sigma):
-        key = jax.random.fold_in(jax.random.fold_in(base, ss), bb)
-        return tuple(np.asarray(a) for a in gen(key, sigma))
-    return hook
 
 
 def _equal_counters(want, got):
