@@ -86,10 +86,11 @@ Phases (each prints; any failure raises and exits non-zero):
     figure of this phase and of phase 6, the counters, the kernel launches
     of that run (none on a witness), the step split into generate /
     quantize / decode / count;
-18. the N=1000 PEG (3,6) waterfall of examples/ber_waterfall.py (q4
-    min-LUT on the std kernels, spa, nms), every point's frame errors
-    against the TPU-era docs/waterfall/{lut_q4,spa,nms}.npz (two-sided
-    two-proportion test, alpha = 1e-3), the LUT run's launches; then the
+18. the N=1000 PEG (3,6) waterfall through
+    lut_ldpc_torch.examples.ber_waterfall (q4 min-LUT on the std kernels,
+    spa, nms), every point's frame errors against the TPU-era
+    docs/waterfall/{lut_q4,spa,nms}.npz (two-sided two-proportion test,
+    alpha = 1e-3), the LUT run's launches; then the
     LUT decoder's CN frames and generated VN kernel at B=256 and 253
     against their plain versions and table-driven kernels, and one batch
     on the kernels against the twin path;
@@ -132,8 +133,36 @@ Phases (each prints; any failure raises and exits non-zero):
     passes its kernel-path check; (e) peg_gen (3,6) N=1000 through the
     port's native library.  It prints a `mesh` JSON line: the counters of
     each run, ms a batch on one slot, on two slots sharing the card and in
-    two processes, and the seconds of each part.
-Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21) must have run each
+    two processes, and the seconds of each part;
+22. after phase 21, the DVB-S2-scale waterfalls (BASELINE.json config 4)
+    and BASELINE config 2 through the port's example workflows
+    (lut_ldpc_torch/examples), B=2048, the codecs of phase 2 (thr 0.90, 50
+    iterations) and those it designs beside them: (a) dvbs2_waterfall's
+    lut64800 (PEG N=64800, 0.8:0.2:1.6 dB, Nframes 16384, Nfers 200,
+    ber_min 1e-8) held against docs/waterfall/lut_dv02-17_N64800_q4.npz,
+    then one 1.2 dB batch at B and at B - 3 (one frame a thread): the
+    B - 3 frames equal to the full batch's, both timed; (b) lut64800_qc
+    (the QC code of the same ensemble), printed beside (a) with the z of
+    each point, not held; (c) dvbs2_spa (BP spa, 50 iterations, on the
+    DVB-S2 alist, 0.6:0.2:1.4 dB, Nframes 2048) against
+    dvbs2_N64800_spa.npz; (d) dvbs2_qc_equivalence's run() on both
+    realizations (0.8-1.4 dB, 8192 frames a point, skipping off), each
+    against its part of dvbs2_qc_equivalence.json and the QC realization
+    against the gather one; (e) run_dvbs2_lut with the stored thr-0.67
+    codec (1.5-1.8 dB, 8192 frames a point, skipping off) against
+    dvbs2_N64800_lut_q4.json, its stability numbers equal to the file's;
+    (f) the ber_sim CLI on params/ber.ini.irregular.example (results and
+    codec sent to a temporary directory) against
+    lut_irregular_N500_q4.json.  Every held point passes fer_test (alpha =
+    1e-3) or the script fails.  Each run prints frames, frame errors and
+    FER per point, mean iterations, frames/s, Mbit/s (frames x k /
+    runtime), peak device memory, the decoder class, the passes of the six
+    kernels (launch counts set to 0 just before the run; the block pair
+    must be 0, no pass on a witness) and the class launches at one frame a
+    thread; then each value-domain segment's CN frames and VN kernel
+    against their plain versions at the run's widths (B, B/4 where the
+    funnel narrows, each also 3 frames fewer).
+Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21, 22) must have run each
 CN and VN pass on the CN frames, the CN block kernel or the generated VN
 kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
 (time, plain twin's time, the card's bound for the same work; `launches`
@@ -144,11 +173,13 @@ of the generated VN kernels also carry `witness_ms`, the table-driven
 kernel's time, and `cn_std_pass` `unfolded_ms`; the QC pair's
 `sim_launches` are the passes of phase 17's simulator run and
 `mesh_launches` those of phase 21a's meshed run, the std pair's
-`sim_launches` those of phase 18's LUT run), the card, and last the
-device line.
+`sim_launches` those of phase 18's LUT run; `example_launches` the passes
+of phase 22's runs and `example_one_frame_launches` their class launches
+at one frame a thread), the card, and last the device line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -167,6 +198,7 @@ REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "vn_block_pass": "lut_ldpc_tpu/decoder/pallas_kernels.py:227"}
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 BUILD_REPORT = []  # ptxas -v report of the two CN frame units, set in phase 2
 
@@ -1101,38 +1133,30 @@ def fer_test(f1, n1, f2, n2, z_crit=3.2905):
 
 
 def waterfall(dev, smi, results):
-    """Phase 18: the N=1000 PEG (3,6) waterfall of examples/ber_waterfall.py
-    (SNR 1.0:0.25:3.5 dB, Nframes 4096, Nfers 200, batch 256, zero codeword,
-    seed 0, ber_min 1e-7) for the q4 min-LUT codec (thr 0.85), spa and nms
-    (50 iterations each), each point's frame errors held against the
-    TPU-era docs/waterfall/{lut_q4,spa,nms}.npz by a two-sided
+    """Phase 18: the N=1000 PEG (3,6) waterfall through
+    lut_ldpc_torch.examples.ber_waterfall.run_waterfall (SNR 1.0:0.25:3.5 dB,
+    Nframes 4096, Nfers 200, batch 256, zero codeword, seed 0, ber_min 1e-7;
+    its files in a temporary directory) for the q4 min-LUT codec (thr 0.85),
+    spa and nms (50 iterations each), each point's frame errors held against
+    the TPU-era docs/waterfall/{lut_q4,spa,nms}.npz by a two-sided
     two-proportion test at alpha = 1e-3."""
-    import numpy as np
+    import tempfile
 
-    from lut_ldpc_torch.core.tanner import TannerGraph
-    from lut_ldpc_torch.decoder import BPDecoder, HybridLUTDecoder, LUTCodec
+    from lut_ldpc_torch.decoder import HybridLUTDecoder
     from lut_ldpc_torch.decoder import qc_kernels as qk
-    from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
-    from lut_ldpc_torch.sim.config import _parse_range
+    from lut_ldpc_torch.examples import ber_waterfall
+    from lut_ldpc_torch.sim import BERSimResults
 
-    graph = TannerGraph.from_alist("codes/rate0.50_dv03_dc06_N1000.alist")
-    snr = _parse_range("1.0:0.25:3.5")
-
-    def cfg():
-        return BERSimConfig(sim=SimConfig(SNRdB=snr, Nframes=4096, Nfers=200,
-                                          batch_size=256, ber_min=1e-7),
-                            ldpc=LDPCConfig(zero_codeword=True))
-
-    codec = LUTCodec.design(graph, 0.85**2, max_iters=50, Nq_Cha=16, Nq_Msg=16)
-    failed = []
-    for name, kw in (("lut_q4", dict(codec=codec)),
-                     ("spa", dict(bp_decoder=BPDecoder(graph, dev, 50, algorithm="spa"))),
-                     ("nms", dict(bp_decoder=BPDecoder(graph, dev, 50, algorithm="nms")))):
-        t0 = time.perf_counter()
-        sim = BERSim(cfg(), graph, dev, **kw)
-        qk.reset_launches()
-        res = sim.run(seed=0, verbose=False)
+    qk.reset_launches()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = ber_waterfall.run_waterfall(tmp, frames=4096, batch=256, device=dev)
+        written = sorted(os.listdir(tmp))
+    log(f"# phase 18: ber_waterfall.run_waterfall in {time.perf_counter() - t0:.1f}s wrote "
+        f"{', '.join(written)}")
+    for name, _, res, sim in runs:
         if name == "lut_q4":
+            # the BP runs launch no LUT kernel: the counts are the LUT run's
             if not isinstance(sim.decoder, HybridLUTDecoder) or sim.decoder.pre.loop != "std":
                 raise AssertionError("expected a HybridLUTDecoder on the std loop")
             tab = sim.decoder.pre.tables
@@ -1141,25 +1165,10 @@ def waterfall(dev, smi, results):
                 results[kname]["sim_launches"] = qk.LAUNCHES[kname]
                 frames_only(kname, per_pass)
             sim_kernels(sim, 2.0, "phase 18: lut_q4")
-        ref = np.load(f"docs/waterfall/{name}.npz")
-        rows = []
-        for i, s in enumerate(snr):
-            n1, f1 = int(res.frames[i]), int(res.frame_errors[i])
-            n2, f2 = int(ref["sim_Nframes"][i]), int(ref["sim_frame_errors"][i])
-            if n1 and n2:
-                z, ok = fer_test(f1, n1, f2, n2)
-                if not ok:
-                    failed.append(f"{name} {s:g} dB")
-                rows.append(f"{s:g} dB {f1}/{n1}={f1 / n1:.3e} vs {f2}/{n2}={f2 / n2:.3e} "
-                            f"(z {z:+.2f}{'' if ok else ' FAIL'})")
-            else:
-                rows.append(f"{s:g} dB frames {n1} / TPU-era {n2}")
-        log(f"# phase 18: {name} N=1000 waterfall in {time.perf_counter() - t0:.1f}s "
-            f"({res.runtime:.1f}s simulating, {int(res.frames.sum())} frames) on {smi}; "
-            f"FER here vs TPU-era: " + "; ".join(rows))
-    if failed:
-        raise AssertionError(f"waterfall points outside the two-proportion test at "
-                             f"alpha = 1e-3: {failed}")
+        ref = BERSimResults.load(os.path.join(ROOT, "docs", "waterfall", f"{name}.npz"))
+        log(f"# phase 18: {name} N=1000 waterfall ({res.runtime:.1f}s simulating, "
+            f"{int(res.frames.sum())} frames) on {smi}; FER here vs TPU-era: "
+            + curve_rows(res, ref.frames, ref.frame_errors, f"phase 18 {name}"))
 
 
 def cli_run(dev, smi):
@@ -1672,6 +1681,316 @@ def mesh_phase(dev, smi, codec, codec_path, results):
                 seconds=secs, card=smi)
 
 
+def segments(decoder):
+    """The value-domain segments of a simulator's decoder (under a
+    ChunkedDecoder): [(ArithLUTDecoder, first iteration it runs)], the int16
+    prefix first."""
+    d = getattr(decoder, "inner", decoder)
+    if getattr(d, "pre", None) is None:
+        return [(d, 0)]
+    later = [(seg, d.pre.S) for seg in (getattr(d, "mid", None), getattr(d, "fin", None))
+             if seg is not None]
+    return [(d.pre, 0)] + later
+
+
+def run_launches(decoder, what, example_launches):
+    """After a run with the counts set to 0 before it: every pass of the
+    decoder's loop went through the CN frames and the generated VN kernels,
+    none through a witness, no block kernel ran; adds the run's passes to
+    example_launches.  Returns the log text of the six kernels' passes and
+    their one-frame-a-thread launches."""
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    seg = segments(decoder)[0][0]
+    tab = seg.tables
+    pair = ((("cn_qc_pass", len(tab.cn_runs)), ("vn_qc_pass", len(tab.vn_runs)))
+            if seg.loop == "qc" else
+            (("cn_std_pass", len(tab.cn_blocks)), ("vn_std_pass", len(tab.vn_blocks))))
+    for name, per_pass in pair:
+        frames_only(name, per_pass)
+    if qk.LAUNCHES["cn_block_pass"] or qk.LAUNCHES["vn_block_pass"]:
+        raise AssertionError(f"{what}: the block loop ran ({dict(qk.LAUNCHES)})")
+    for name in REPLACES:
+        example_launches[name][0] += qk.LAUNCHES[name]
+        example_launches[name][1] += qk.ONE_FRAME_LAUNCHES[name]
+    return ("passes " + ", ".join(f"{n} {qk.LAUNCHES[n]}" for n in REPLACES)
+            + "; one frame a thread " + ", ".join(
+                f"{n} {qk.ONE_FRAME_LAUNCHES[n]}/{qk.CLASS_LAUNCHES[n]}" for n in REPLACES
+                if qk.CLASS_LAUNCHES[n]))
+
+
+def hold_segments(decoder, widths, what, results):
+    """Each segment's CN frames and generated VN kernel at each width the run
+    gave them (and 3 frames fewer), on an iteration the segment runs,
+    against their plain versions and the table-driven kernels (times not
+    held); the largest difference goes into the kernels line."""
+    for seg, start in segments(decoder):
+        it = (start + seg.spec.num_iters) // 2
+        for B in widths:
+            for name, r in kernel_vs_twin(seg, it, 1, B, f"{what} {seg.dtype} it={it}",
+                                          hold_speed=False).items():
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                                   r["max_abs_err"])
+
+
+def curve_rows(res, ref_frames, ref_errors, what, hold=True):
+    """Per point frames, frame errors and FER against a TPU-era curve (or
+    another run) with the two-proportion z; raises where a held point falls
+    outside alpha = 1e-3.  Returns the log text."""
+    rows, bad, zs = [], [], []
+    for i, s in enumerate(res.snr_db):
+        n1, f1 = int(res.frames[i]), int(res.frame_errors[i])
+        if not n1:
+            rows.append(f"{s:g} dB skipped")
+            continue
+        n2 = int(ref_frames[i]) if i < len(ref_frames) else 0
+        if not n2:
+            rows.append(f"{s:g} dB {f1}/{n1}={f1 / n1:.3e} (no reference point)")
+            continue
+        f2 = int(ref_errors[i])
+        z, ok = fer_test(f1, n1, f2, n2)
+        zs.append(abs(z))
+        if hold and not ok:
+            bad.append(f"{s:g} dB")
+        rows.append(f"{s:g} dB {f1}/{n1}={f1 / n1:.3e} vs {f2}/{n2}={f2 / n2:.3e} "
+                    f"(z {z:+.2f}{'' if ok else ' FAIL' if hold else ' not held'})")
+    if bad:
+        raise AssertionError(f"{what}: points outside the two-proportion test at "
+                             f"alpha = 1e-3: {bad}")
+    return "; ".join(rows) + (f" (largest |z| {max(zs):.2f})" if zs else "")
+
+
+def run_summary(res, sim, peak, label):
+    """Mean iterations, frames/s, decoded information Mbit/s (frames x k /
+    runtime), peak device memory and the decoder class of a run."""
+    frames = int(res.frames.sum())
+    iters = float(res.decode_iters.sum() / frames)
+    dec = type(sim.decoder).__name__
+    inner = getattr(sim.decoder, "inner", None)
+    if inner is not None:
+        dec += f"({type(inner).__name__}, chunk {sim.decoder.chunk})"
+    return (f"{label}: {frames} frames in {res.runtime:.2f}s, mean iters {iters:.4f}, "
+            f"{frames / res.runtime:.1f} frames/s, {frames * sim.k / res.runtime / 1e6:.3f} "
+            f"Mbit/s, peak device memory {peak:.2f} GiB, decoder {dec}")
+
+
+def monte_carlo(run, what, example_launches, lut=True):
+    """Calls run() -> (results, simulator) with the launch counts set to 0
+    and the peak memory reset just before it; returns (results, simulator,
+    peak GiB, the launches' log text)."""
+    import torch
+
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qk.reset_launches()
+    res, sim = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not lut:
+        if any(qk.LAUNCHES.values()):
+            raise AssertionError(f"{what}: a LUT kernel ran in a BP run")
+        return res, sim, peak, "no LUT kernel (BP: torch ops)"
+    return res, sim, peak, run_launches(sim.decoder, what, example_launches)
+
+
+def odd_width(sim, snr_db, what):
+    """One batch of the simulator's own draw at snr_db through its decoder at
+    the run's width B and at B - 3 (one frame a thread): the B - 3 frames
+    equal the first B - 3 of the full batch; both timed (bench.time_decode,
+    3 calls after 2 warm-ups) and the one-frame launches of one call at
+    B - 3 counted.  Returns (ms at B, ms at B - 3, one-frame launches, class
+    launches)."""
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.ops.pmf import snr2sig
+
+    B = sim.config.sim.batch_size
+    sigma = torch.tensor(float(snr2sig(sim.rate, snr_db)), dtype=torch.float32,
+                         device=sim.device)
+    lc, lm = sim.quantize(sim.draw(0, 0, 0, sigma)[2])
+    full_s, out = bench.time_decode(sim.decoder, lc, lm, 3)
+    lc3, lm3 = lc[: B - 3].contiguous(), lm[: B - 3].contiguous()
+    qk.reset_launches()
+    odd = sim.decoder(lc3, lm3)
+    torch.cuda.synchronize()
+    one = sum(qk.ONE_FRAME_LAUNCHES.values())
+    cls = sum(qk.CLASS_LAUNCHES.values())
+    same([o[: B - 3] for o in out], odd, f"{what}: B - 3 frames against the full batch")
+    odd_s, _ = bench.time_decode(sim.decoder, lc3, lm3, 3)
+    if one < 1:
+        raise AssertionError(f"{what}: no launch at one frame a thread at B - 3")
+    return full_s * 1e3, odd_s * 1e3, one, cls
+
+
+def example_workflows(dev, smi, codecs, tmp, results, example_launches):
+    """Phase 22: the DVB-S2-scale waterfalls and BASELINE.json config 2
+    through the port's example workflows (lut_ldpc_torch/examples), each
+    curve held against its TPU-era file in docs/waterfall/ by fer_test."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch.cli import ber_sim
+    from lut_ldpc_torch.decoder import BPDecoder, LUTCodec
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.examples import dvbs2_qc_equivalence as eq
+    from lut_ldpc_torch.examples import dvbs2_waterfall as dw
+    from lut_ldpc_torch.sim import BERSim, BERSimResults, parse_ini
+    from lut_ldpc_torch.sim.config import _parse_range
+
+    B, docs = dw.BATCH, os.path.join(ROOT, "docs", "waterfall")
+
+    def stored(name):
+        if name.endswith(".npz"):
+            return BERSimResults.load(os.path.join(docs, name))
+        with open(os.path.join(docs, name)) as f:
+            return json.load(f)
+
+    # 22a / 22b: q4 min-LUT at 0.90 on the PEG and the QC N=64800 codes, the
+    # JAX example's grid and stop rules (Nframes 16384, Nfers 200, ber_min
+    # 1e-8)
+    curves = {}
+    for sub, run in (("a", "lut64800"), ("b", "lut64800_qc")):
+        t0 = time.perf_counter()
+        codec, snr = codecs[run], _parse_range(dw.SNR[run])
+
+        def lut_run():
+            res, _, sim = dw.simulate(codec.graph, snr, 16384, B, codec=codec, nfers=200,
+                                      ber_min=1e-8, fer_min=1e-10, device=dev, out_dir=tmp)
+            return res, sim
+
+        res, sim, peak, text = monte_carlo(lut_run, f"22{sub} {run}", example_launches)
+        dw.write_run(dw.TAGS[run], res, res.runtime, snr, tmp)
+        curves[run] = res
+        if run == "lut64800":
+            ref = stored("lut_dv02-17_N64800_q4.npz")
+            rows = curve_rows(res, ref.frames, ref.frame_errors, "22a lut64800")
+        else:  # another code of the ensemble: printed beside 22a, not held
+            a = curves["lut64800"]
+            rows = "against 22a's PEG code: " + curve_rows(res, a.frames, a.frame_errors,
+                                                          "22b", hold=False)
+        log(f"# phase 22{sub}: {run} " + run_summary(res, sim, peak, f"B={B}")
+            + f"; {text}; FER " + rows + f" on {smi}")
+        hold_segments(sim.decoder, [B, B // 4], f"phase 22{sub} {run}", results)
+        if run == "lut64800":
+            ms, ms_odd, one, cls = odd_width(sim, 1.2, "phase 22a")
+            log(f"# phase 22a: one 1.2 dB batch through {type(sim.decoder).__name__}: "
+                f"B={B} {ms:.3f} ms, B={B - 3} {ms_odd:.3f} ms (ratio {ms_odd / ms:.4f}); "
+                f"bits, ok and iters of the {B - 3} frames equal to the full batch's; "
+                f"{one} of {cls} class launches at one frame a thread at B={B - 3}")
+        del sim
+        log(f"# phase 22{sub} took {time.perf_counter() - t0:.1f}s")
+
+    # 22c: float sum-product on the DVB-S2 matrix (Nframes 2048, Nfers 200)
+    t0 = time.perf_counter()
+    graph = codecs["dvbs2_gather"].graph
+    snr = _parse_range(dw.SNR["dvbs2_spa"])
+
+    def spa_run():
+        bp = BPDecoder(graph, dev, 50, algorithm="spa")
+        res, _, sim = dw.simulate(graph, snr, 2048, B, bp=bp, nfers=200, device=dev,
+                                  out_dir=tmp)
+        return res, sim
+
+    res, sim, peak, text = monte_carlo(spa_run, "22c dvbs2_spa", example_launches, lut=False)
+    ref = stored("dvbs2_N64800_spa.npz")
+    log("# phase 22c: dvbs2_spa " + run_summary(res, sim, peak, f"B={B}") + f"; {text}; FER "
+        + curve_rows(res, ref.frames, ref.frame_errors, "22c dvbs2_spa") + f" on {smi}")
+    del sim
+    log(f"# phase 22c took {time.perf_counter() - t0:.1f}s")
+
+    # 22d: the two realizations with the thr-0.90 design, 8192 frames a
+    # point, Nfers 1e9, skipping off
+    t0 = time.perf_counter()
+    snrs, frames = [0.8, 1.0, 1.2, 1.4], 8192
+    ref = stored("dvbs2_qc_equivalence.json")
+    got = {}
+    for real, key in (("qc", "dvbs2"), ("gather", "dvbs2_gather")):
+        codec = codecs[key]
+
+        def eq_run():
+            res, _, sim = eq.run(codec.graph, snrs, frames, B, 0.90, device=dev, codec=codec)
+            return res, sim
+
+        res, sim, peak, text = monte_carlo(eq_run, f"22d {real}", example_launches)
+        got[real] = res
+        log(f"# phase 22d: {real} realization " + run_summary(res, sim, peak, f"B={B}")
+            + f"; {text}; FER against the TPU-era {real}: "
+            + curve_rows(res, [ref["frames"]] * len(snrs), ref[real]["frame_errors"],
+                         f"22d {real}") + f" on {smi}")
+        hold_segments(sim.decoder, [B, B // 4], f"phase 22d {real}", results)
+        del sim
+    payload = eq.payload_of(snrs, frames, 0.90, got["qc"], got["qc"].runtime,
+                            got["gather"], got["gather"].runtime)
+    log("# phase 22d: QC against gather in the port: "
+        + curve_rows(got["qc"], got["gather"].frames, got["gather"].frame_errors,
+                     "22d QC against gather") + f"; fer_z_scores {payload['fer_z_scores']}")
+    log(f"# phase 22d took {time.perf_counter() - t0:.1f}s")
+
+    # 22e: the stored thr-0.67 codec on the alist's realization, 8192 frames
+    # a point, skipping off (run_dvbs2_lut's Nfers, 10000, is above them)
+    t0 = time.perf_counter()
+    snr, out = np.array([1.5, 1.6, 1.7, 1.8]), {}
+
+    def lut67_run():
+        out["payload"], res, _, sim = dw.run_dvbs2_lut(graph, codecs["stored"], snr, 8192, B,
+                                                       tmp, device=dev)
+        return res, sim
+
+    res, sim, peak, text = monte_carlo(lut67_run, "22e dvbs2_lut", example_launches)
+    ref = stored("dvbs2_N64800_lut_q4.json")
+    idx = [ref["snr_db"].index(float(s)) for s in snr]
+    rows = curve_rows(res, [ref["frames"][i] for i in idx],
+                      [ref["frame_errors"][i] for i in idx], "22e dvbs2_lut")
+    pay = out["payload"]
+    for key in ("lam2", "lam2_stable_at_1dB", "thr_snr_db"):
+        if not np.isclose(pay[key], ref[key], rtol=1e-12, atol=0):
+            raise AssertionError(f"22e: {key} {pay[key]} against the stored {ref[key]}")
+    log("# phase 22e: dvbs2_lut (stored codec) " + run_summary(res, sim, peak, f"B={B}")
+        + f", the table tail in {sim.decoder.tail_runs} of {int(res.frames.sum()) // B} "
+        f"batches; {text}; FER " + rows + f"; lam2 {pay['lam2']:.6f}, stable limit "
+        f"{pay['lam2_stable_at_1dB']:.6f}, threshold {pay['thr_snr_db']} dB: the stored "
+        f"values; on {smi}")
+    hold_segments(sim.decoder, [B, B // 4], "phase 22e dvbs2_lut", results)
+    del sim
+    log(f"# phase 22e took {time.perf_counter() - t0:.1f}s")
+
+    # 22f: BASELINE.json config 2 through the ber_sim CLI: the INI as it is,
+    # its results and designed codec sent to a temporary directory
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(ROOT, "params", "ber.ini.irregular.example")) as f:
+            text_ini = f.read()
+        ini, codec_path = os.path.join(d, "ber.ini.irregular.example"), os.path.join(d, "c.npz")
+        with open(ini, "w") as f:
+            f.write(text_ini.replace("[Sim]\n", f"[Sim]\nresults_dir = {d}/results\n"
+                                                f"codec_filename = {codec_path}\n", 1))
+        torch.cuda.reset_peak_memory_stats()
+        qk.reset_launches()
+        if ber_sim.main(["-p", ini, "-s", "0", "-b", ROOT]) != 0:
+            raise AssertionError("22f: ber_sim CLI failed")
+        cli_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = parse_ini(ini)
+        codec = LUTCodec.load(codec_path)
+        sim = BERSim(cfg, codec.graph, dev, codec=codec)  # the decoder the CLI built
+        text = run_launches(sim.decoder, "22f config 2", example_launches)
+        (base,) = os.listdir(os.path.join(d, "results"))
+        res = BERSimResults.load(os.path.join(d, "results", base, f"{base}_rseed0000.npz"))
+    ref = stored("lut_irregular_N500_q4.json")
+    log(f"# phase 22f: ber_sim CLI on params/ber.ini.irregular.example in {cli_s:.1f}s with "
+        f"the design, " + run_summary(res, sim, peak, f"B={cfg.sim.batch_size}")
+        + f"; {text}; FER " + curve_rows(res, ref["frames"], ref["frame_errors"],
+                                         "22f config 2") + f" on {smi}")
+    hold_segments(sim.decoder, [cfg.sim.batch_size], "phase 22f config 2", results)
+    log(f"# phase 22f took {time.perf_counter() - t0:.1f}s")
+
+
 def check_worker_golden(what, golden, frame0, max_iters):
     import numpy as np
 
@@ -1750,6 +2069,23 @@ def main():
                                       b64.DESIGN_THR**2, max_iters=b64.MAX_ITERS,
                                       Nq_Cha=16, Nq_Msg=16)
         start_vn_builds({"DVB-S2 unpermuted": (dvb_codec_g, full)}, libs)
+        # phase 22's codecs that the phases above lack, and their units
+        from lut_ldpc_torch.core.tanner import TannerGraph
+        from lut_ldpc_torch.examples import dvbs2_waterfall as dw
+
+        ex_codecs = {"lut64800": codec, "dvbs2": dvb_codec,
+                     "lut64800_qc": b64.build_codec("qc"),
+                     "dvbs2_gather": LUTCodec.design(
+                         TannerGraph.from_alist(dw.DVBS2_ALIST), b64.DESIGN_THR**2,
+                         max_iters=b64.MAX_ITERS, Nq_Cha=16, Nq_Msg=16),
+                     "stored": dw.stored_codec(None, "", tmp)}
+        auto = [(build_arith_prefix_spec, np.int16, ("auto",)),
+                (build_arith_spec, np.float32, ("auto",))]
+        start_vn_builds({"QC N=64800": (ex_codecs["lut64800_qc"], auto),
+                         "DVB-S2 from the alist": (ex_codecs["dvbs2_gather"], full),
+                         "DVB-S2 thr 0.67": (ex_codecs["stored"], [
+                             (build_arith_prefix_spec, dt, ("auto",))
+                             for dt in (np.int16, np.float32)])}, libs)
         finish_builds(builds, libs)
         log(f"#   {len(builds) + len(libs)} libraries built side by side in "
             f"{time.perf_counter() - t0:.1f}s")
@@ -1759,6 +2095,7 @@ def main():
         # the PEG rank (a third busy worker) starts after the headline's
         # timed phase
         rank = pool.apply_async(b64.info_bits, ("peg",))
+        rank_qc = pool.apply_async(b64.info_bits, ("qc",))  # phase 22b's k
         peg_frame0, peg_k = peg(dev, smi, codec, lc, lm, rank, results, launches)
         torch.cuda.empty_cache()
         block_kernels(dev, head_codec, codec, results)
@@ -1781,6 +2118,10 @@ def main():
             log(f"# phase {phase} took {time.perf_counter() - t0:.1f}s")
         check_worker_golden("PEG", golden, peg_frame0, codec.max_iters)
         check_worker_golden("DVB-S2", golden_dvb, dvb_frame0, codec.max_iters)
+        # the GF(2) ranks the workers computed (minutes of host time here)
+        codec.nchk_lin_indep = codec.nvar - peg_k
+        qc_codec = ex_codecs["lut64800_qc"]
+        qc_codec.nchk_lin_indep = qc_codec.nvar - rank_qc.get()[0]
     # the workers have ended: the simulator's step is timed on a quiet host
     t0 = time.perf_counter()
     sim_step(dev, smi, head_codec, head_mbits, head_iters, results)
@@ -1792,14 +2133,20 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mesh_line = mesh_phase(dev, smi, head_codec, head_path, results)
-    shutil.rmtree(tmp)
     log(f"# phase 21 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    example_launches = {n: [0, 0] for n in REPLACES}
+    example_workflows(dev, smi, ex_codecs, tmp, results, example_launches)
+    shutil.rmtree(tmp)
+    log(f"# phase 22 took {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"mesh": mesh_line}))
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
-             launches=launches[n], **results[n])
+             launches=launches[n], **results[n], example_launches=example_launches[n][0],
+             example_one_frame_launches=example_launches[n][1])
         for n in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,6 +39,9 @@ sha256 over the text of its sources and the compiler flags
 ``CLASS_LAUNCHES`` the launches of the per-degree kernels these made, one
 for each call of a per-degree entry point that returned 0 (an entry point
 with nothing to launch returns ``NOTHING_TO_LAUNCH``, which counts none).
+``ONE_FRAME_LAUNCHES`` counts those class launches of the CN frames and the
+generated QC and std VN kernels that ran at one frame a thread (a batch
+width or an array start that the vector path does not take).
 ``PLAIN_RUNS`` counts the wrappers' calls on CPU tensors, which run the
 plain versions.
 """
@@ -57,7 +60,8 @@ from .params import QCTables, StdTables, VNParams
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
            "build_kernels", "start_builds", "unit_path", "ptxas_cn_frames",
-           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "PLAIN_RUNS", "NOTHING_TO_LAUNCH",
+           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "ONE_FRAME_LAUNCHES", "PLAIN_RUNS",
+           "NOTHING_TO_LAUNCH",
            "reset_launches", "UNITS", "KERNEL_SOURCE", "CN_SOURCE"]
 
 KERNEL_SOURCE = "qc_kernels.cu"  # the CN block kernel and the table-driven witnesses
@@ -85,6 +89,9 @@ LAUNCHES_BY_DTYPE = {(name, dt): 0 for name in LAUNCHES
 # the CN block kernel; several a pass); a pass through a table-driven
 # witness adds nothing here
 CLASS_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# of those, the launches at one frame a thread (CN frames, generated QC and
+# std VN kernels)
+ONE_FRAME_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # wrapper calls on CPU tensors (the plain versions ran)
 PLAIN_RUNS = dict.fromkeys(LAUNCHES, 0)
 
@@ -94,7 +101,7 @@ _libs: dict = {}    # unit -> loaded library
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, PLAIN_RUNS):
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, ONE_FRAME_LAUNCHES, PLAIN_RUNS):
         for k in counts:
             counts[k] = 0
 
@@ -230,14 +237,16 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def _class_launched(err: int, name: str) -> None:
+def _class_launched(err: int, name: str, one_frame: bool = False) -> None:
     """After a call of a per-degree entry point (CN or VN frames): raise on a
     CUDA error; count one class launch of `name` where the kernel was
-    launched, none where there was nothing to launch."""
+    launched (and one at one frame a thread where `one_frame`), none where
+    there was nothing to launch."""
     if err == NOTHING_TO_LAUNCH:
         return
     _raise_on(err, name)
     CLASS_LAUNCHES[name] += 1
+    ONE_FRAME_LAUNCHES[name] += one_frame
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +319,14 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
             tables.max_dc, B, stream)
         _raise_on(err, "cn_qc_pass")
     else:
-        fn, aligned = _load_cn(is_f32).lut_cn_qc_frames, _aligned(m_vn, m_cn)
+        lib, aligned = _load_cn(is_f32), _aligned(m_vn, m_cn)
         for lo, hi, d in tables.cn_runs:
-            err = fn(is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
-                     tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
-                     tables.cn_dst.data_ptr(), lo, hi - lo, tables.Z,
-                     tables.max_dc, d, B, aligned, stream)
-            _class_launched(err, "cn_qc_pass")
+            err = lib.lut_cn_qc_frames(
+                is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
+                tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
+                tables.cn_dst.data_ptr(), lo, hi - lo, tables.Z, tables.max_dc, d, B,
+                aligned, stream)
+            _class_launched(err, "cn_qc_pass", lib.lut_cn_vec(is_f32, d, B, aligned) == 1)
     _launched("cn_qc_pass", m_vn.dtype)
     return m_cn, synd
 
@@ -458,16 +468,16 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
             tables.max_dv, B, _stream(dev))
         _raise_on(err, "vn_qc_pass")
     else:
-        fn = vn_codegen.library(params, m_cn.dtype, "qc").handle().lut_vn_qc_class
+        lib = vn_codegen.library(params, m_cn.dtype, "qc").handle()
         aligned = _aligned(m_cn, cha, m_vn, bits)
         row, stream = _prm_row(params, it), _stream(dev)
         for lo, hi, ci in tables.vn_runs:
-            err = fn(ci, m_cn.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
-                     bits.data_ptr(), unan.data_ptr(), tables.vn_src.data_ptr(),
-                     tables.vn_shift.data_ptr(), tables.vn_dst.data_ptr(),
-                     tables.vn_node.data_ptr(), lo, hi - lo, tables.Z,
-                     tables.max_dv, B, aligned, row, stream)
-            _class_launched(err, "vn_qc_pass")
+            err = lib.lut_vn_qc_class(
+                ci, m_cn.data_ptr(), cha.data_ptr(), m_vn.data_ptr(), bits.data_ptr(),
+                unan.data_ptr(), tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
+                tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(), lo, hi - lo, tables.Z,
+                tables.max_dv, B, aligned, row, stream)
+            _class_launched(err, "vn_qc_pass", lib.lut_vn_vec(ci, B, aligned) == 1)
     _launched("vn_qc_pass", m_cn.dtype)
     return m_vn, bits, unan
 
@@ -515,13 +525,15 @@ def _cn_std_frames(m_in, out, synd, tables: StdTables, rows) -> None:
     lut_ldpc_torch.profile_cn an identity table (the CN-grouped planes, for
     the unfolded route it times)."""
     is_f32, aligned = int(m_in.dtype == torch.float32), _aligned(m_in, out)
-    fn, stream = _load_cn(is_f32).lut_cn_std_frames, _stream(m_in.device)
+    lib, stream = _load_cn(is_f32), _stream(m_in.device)
     B = m_in.shape[1]
     for blk in tables.cn_blocks:
-        err = fn(is_f32, m_in.data_ptr(), out.data_ptr(), synd.data_ptr(),
-                 rows.data_ptr(), blk.n_pad, blk.num_nodes, blk.edge_start,
-                 blk.degree, B, aligned, stream)
-        _class_launched(err, "cn_std_pass")
+        err = lib.lut_cn_std_frames(is_f32, m_in.data_ptr(), out.data_ptr(),
+                                    synd.data_ptr(), rows.data_ptr(), blk.n_pad,
+                                    blk.num_nodes, blk.edge_start, blk.degree, B,
+                                    aligned, stream)
+        _class_launched(err, "cn_std_pass",
+                        lib.lut_cn_vec(is_f32, blk.degree, B, aligned) == 1)
 
 
 def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
@@ -620,13 +632,14 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
             tables.nvar_pad, tables.max_dv, B, _stream(dev))
         _raise_on(err, "vn_std_pass")
     else:
-        fn = vn_codegen.library(params, m_c2v.dtype, "std").handle().lut_vn_std_class
+        lib = vn_codegen.library(params, m_c2v.dtype, "std").handle()
         aligned = _aligned(m_c2v, cha, m_vn, bits)
         row, stream = _prm_row(params, it), _stream(dev)
         for ci, blk in enumerate(blocks):
-            err = fn(ci, m_c2v.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
-                     bits.data_ptr(), unan.data_ptr(), blk.node_start, blk.n_pad,
-                     blk.num_nodes, blk.edge_start, B, aligned, row, stream)
-            _class_launched(err, "vn_std_pass")
+            err = lib.lut_vn_std_class(ci, m_c2v.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
+                                       bits.data_ptr(), unan.data_ptr(), blk.node_start,
+                                       blk.n_pad, blk.num_nodes, blk.edge_start, B,
+                                       aligned, row, stream)
+            _class_launched(err, "vn_std_pass", lib.lut_vn_vec(ci, B, aligned) == 1)
     _launched("vn_std_pass", m_c2v.dtype)
     return m_vn, bits, unan

@@ -1,8 +1,9 @@
-"""The port imports no jax and nothing of the JAX package: statically, and
-in processes where neither can be imported at all (as on a GPU machine
-that has neither), which design and decode a QC codec and a
-phantom-completed one, simulate (also over a mesh), run the DE explorers
-and de_sim, the entry points, PEG and the numpy CLIs."""
+"""The port imports no jax, nothing of the JAX package and nothing of the
+root examples/: statically, and in processes where neither can be imported
+at all (as on a GPU machine that has neither), which design and decode a
+QC codec and a phantom-completed one, simulate (also over a mesh), run the
+DE explorers and de_sim, the entry points, PEG, the numpy CLIs and the
+port's example workflows."""
 
 import ast
 import os
@@ -40,7 +41,8 @@ def test_no_jax_import(path):
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
     bad = [m for m in _imported(tree)
-           if m.split(".")[0] in FORBIDDEN or m.startswith("lut_ldpc_tpu")]
+           if m.split(".")[0] in FORBIDDEN or m.startswith("lut_ldpc_tpu")
+           or m.split(".")[0] == "examples"]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -241,6 +243,40 @@ def test_mesh_peg_and_host_tools_with_jax_blocked(tmp_path):
         assert dec(*args)[0].shape == (16, 128)
         assert sys.modules["jax"] is None
         assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "OK"
+
+
+def test_examples_with_jax_blocked(tmp_path):
+    """The port's example workflows (ber_waterfall at 64 frames, make_assets,
+    the DVB-S2 stability numbers) in a process where jax, jaxlib and
+    lut_ldpc_tpu cannot be imported."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["lut_ldpc_tpu"] = None
+        import os
+        import torch
+        torch.set_num_threads(1)
+        from lut_ldpc_torch.examples import (ber_waterfall, dvbs2_qc_equivalence,
+                                             dvbs2_waterfall, make_assets)
+        root = sys.argv[1]
+        assert ber_waterfall.main(["--device", "cpu", "--frames", "64", "--batch", "64",
+                                   "--snr", "2.0", "--out", os.path.join(root, "w")]) == 0
+        assert {"lut_q4.npz", "lut_q4.it", "spa.npz", "nms.npz"} <= set(
+            os.listdir(os.path.join(root, "w")))
+        assert make_assets.main(["--out", os.path.join(root, "a")]) == 0
+        assert len(os.listdir(os.path.join(root, "a", "codes"))) == 6
+        assert dvbs2_qc_equivalence.fer_z_scores([5], [0], 100) == [2.26]
+        assert sys.modules["jax"] is None
+        assert not [m for m in sys.modules if m.startswith("lut_ldpc_tpu.")]
+        assert "examples" not in sys.modules
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -213,3 +213,19 @@ def test_class_launches_count_only_real_launches(monkeypatch, err, counted):
     else:
         qk._class_launched(err, "cn_std_pass")
     assert qk.CLASS_LAUNCHES["cn_std_pass"] == counted
+
+
+@pytest.mark.parametrize("err, one_frame, counted", [
+    (0, True, 1), (0, False, 0), (qk.NOTHING_TO_LAUNCH, True, 0)])
+def test_one_frame_launches_count_with_their_class_launch(monkeypatch, err, one_frame,
+                                                         counted):
+    """A class launch at one frame a thread also counts in
+    ONE_FRAME_LAUNCHES; an entry point with nothing to launch counts in
+    neither; reset_launches clears it."""
+    monkeypatch.setitem(qk.CLASS_LAUNCHES, "vn_std_pass", 0)
+    monkeypatch.setitem(qk.ONE_FRAME_LAUNCHES, "vn_std_pass", 0)
+    qk._class_launched(err, "vn_std_pass", one_frame)
+    assert qk.ONE_FRAME_LAUNCHES["vn_std_pass"] == counted
+    assert qk.CLASS_LAUNCHES["vn_std_pass"] == int(err == 0)
+    qk.reset_launches()
+    assert qk.ONE_FRAME_LAUNCHES["vn_std_pass"] == 0 == qk.CLASS_LAUNCHES["vn_std_pass"]
