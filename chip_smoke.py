@@ -4,7 +4,8 @@
 
 Phases (each prints; any failure raises and exits non-zero):
  1. the card (nvidia-smi name and power limit), torch and CUDA versions;
- 2. design the headline, the N=64800 PEG and the two DVB-S2 codecs, and
+ 2. design the headline, the N=64800 PEG and the two DVB-S2 codecs (and
+    load the two stored thr-0.67 codecs of phase 22), and
     meanwhile build every CUDA library side by side, one nvcc each: the
     kernel library's three units (the CN frames of csrc/cn_frames.cuh for
     int16 and for float32 messages, and csrc/qc_kernels.cu: the CN block
@@ -151,6 +152,10 @@ Phases (each prints; any failure raises and exits non-zero):
     against the gather one; (e) run_dvbs2_lut with the stored thr-0.67
     codec (1.5-1.8 dB, 8192 frames a point, skipping off) against
     dvbs2_N64800_lut_q4.json, its stability numbers equal to the file's;
+    (g) the same with the stored QC codec on the matrix's Z=360 realization
+    (dvbs2_lut_qc: load_periodic_alist, one phantom edge) against the same
+    file (the same matrix), on the loop the JAX package takes for that codec
+    (std: a codec file keeps no QC structure), no pass of another pair;
     (f) the ber_sim CLI on params/ber.ini.irregular.example (results and
     codec sent to a temporary directory) against
     lut_irregular_N500_q4.json.  Every held point passes fer_test (alpha =
@@ -161,8 +166,22 @@ Phases (each prints; any failure raises and exits non-zero):
     must be 0, no pass on a witness) and the class launches at one frame a
     thread; then each value-domain segment's CN frames and VN kernel
     against their plain versions at the run's widths (B, B/4 where the
-    funnel narrows, each also 3 frames fewer).
-Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21, 22) must have run each
+    funnel narrows, each also 3 frames fewer);
+23. after phase 22, the port's regression ledger
+    (lut_ldpc_torch.tools.perf_regress): `record` twice into a temporary
+    ledger with phase 2's codecs (the fused CN + VN chains at N=10000 and
+    N=64800, the headline, DVB-S2 and PEG decodes, a fresh headline decoder
+    built with its generated VN units compiled cold and its first two
+    calls, the kernel library's units built cold into a temporary
+    directory), each entry printed; `check` must return 0 on the two and 1
+    once a third record with the headline decode 1.5 times slower is
+    appended; every pass on the CN frames or the generated VN kernels, none
+    on a table-driven witness (qc_kernels.WITNESS_LAUNCHES), no block
+    kernel.  Then the kernels at the records' shapes against their plain
+    versions: both fused chains on their own inputs (one CN pass, one and
+    all chained iterations), and the CN frames and generated VN kernels of
+    the N=64800 QC, DVB-S2 and PEG decoders at B=1024 and 1021.
+Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21, 22, 23) must have run each
 CN and VN pass on the CN frames, the CN block kernel or the generated VN
 kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
 (time, plain twin's time, the card's bound for the same work; `launches`
@@ -175,7 +194,8 @@ kernel's time, and `cn_std_pass` `unfolded_ms`; the QC pair's
 `mesh_launches` those of phase 21a's meshed run, the std pair's
 `sim_launches` those of phase 18's LUT run; `example_launches` the passes
 of phase 22's runs and `example_one_frame_launches` their class launches
-at one frame a thread), the card, and last the device line.
+at one frame a thread, `regress_launches` the passes of phase 23), the card,
+and last the device line.
 """
 
 import json
@@ -558,9 +578,10 @@ def frames_only(name, per_pass):
     from lut_ldpc_torch.decoder import qc_kernels as qk
 
     got, want = qk.CLASS_LAUNCHES[name], qk.LAUNCHES[name] * per_pass
-    if got != want or want < 1:
+    if got != want or want < 1 or qk.WITNESS_LAUNCHES[name]:
         raise AssertionError(f"{name}: {got} class launches in "
-                             f"{qk.LAUNCHES[name]} passes, expected {want}")
+                             f"{qk.LAUNCHES[name]} passes, expected {want}; "
+                             f"{qk.WITNESS_LAUNCHES[name]} on the table-driven kernel")
     log(f"#   {name}: {qk.LAUNCHES[name]} passes, none on the table-driven kernel "
         f"({got} class launches)")
     return got
@@ -1703,11 +1724,10 @@ def run_launches(decoder, what, example_launches):
 
     seg = segments(decoder)[0][0]
     tab = seg.tables
-    pair = ((("cn_qc_pass", len(tab.cn_runs)), ("vn_qc_pass", len(tab.vn_runs)))
-            if seg.loop == "qc" else
-            (("cn_std_pass", len(tab.cn_blocks)), ("vn_std_pass", len(tab.vn_blocks))))
-    for name, per_pass in pair:
-        frames_only(name, per_pass)
+    per_pass = ((len(tab.cn_runs), len(tab.vn_runs)) if seg.loop == "qc" else
+                (len(tab.cn_blocks), len(tab.vn_blocks)))
+    for name, n in zip(LOOP_PAIRS[seg.loop], per_pass):
+        frames_only(name, n)
     if qk.LAUNCHES["cn_block_pass"] or qk.LAUNCHES["vn_block_pass"]:
         raise AssertionError(f"{what}: the block loop ran ({dict(qk.LAUNCHES)})")
     for name in REPLACES:
@@ -1826,13 +1846,66 @@ def odd_width(sim, snr_db, what):
     return full_s * 1e3, odd_s * 1e3, one, cls
 
 
+# the loop the JAX package's BERSim takes for both stored codecs where its
+# kernels run: codec files keep no QC structure
+# (tests/test_torch_examples.py::test_stored_codecs_pick_the_jax_loop holds
+# the port's choice against the JAX package's on the CPU)
+STORED_LOOP = "std"
+LOOP_PAIRS = {"qc": ("cn_qc_pass", "vn_qc_pass"), "std": ("cn_std_pass", "vn_std_pass"),
+              "blocks": ("cn_block_pass", "vn_block_pass")}
+
+
+def stored_run(sub, run, graph, codec, qc_tag, tmp, dev, smi, results, example_launches):
+    """Phase 22e / 22g: dvbs2_waterfall's run_dvbs2_lut with a stored
+    thr-0.67 codec at the cliff (1.5-1.8 dB, 8192 frames a point) against
+    docs/waterfall/dvbs2_N64800_lut_q4.json by fer_test, the stability
+    numbers equal to the file's, every segment on STORED_LOOP's kernel
+    pair (no pass of another pair), then each segment's kernels against
+    their plain versions at the run's widths."""
+    import numpy as np
+
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.examples import dvbs2_waterfall as dw
+
+    B, snr, out = dw.BATCH, np.array([1.5, 1.6, 1.7, 1.8]), {}
+
+    def lut67_run():
+        out["payload"], res, _, sim = dw.run_dvbs2_lut(graph, codec, snr, 8192, B, tmp,
+                                                       qc_tag=qc_tag, device=dev)
+        return res, sim
+
+    res, sim, peak, text = monte_carlo(lut67_run, f"22{sub} {run}", example_launches)
+    loops = sorted({seg.loop for seg, _ in segments(sim.decoder)})
+    others = [n for loop, pair in LOOP_PAIRS.items() if loop != STORED_LOOP
+              for n in pair if qk.LAUNCHES[n]]
+    if loops != [STORED_LOOP] or others:
+        raise AssertionError(f"22{sub}: segments on the {loops} loop, passes of {others}; "
+                             f"the JAX package takes the {STORED_LOOP} loop")
+    with open(os.path.join(ROOT, "docs", "waterfall", "dvbs2_N64800_lut_q4.json")) as f:
+        ref = json.load(f)
+    idx = [ref["snr_db"].index(float(s)) for s in snr]
+    rows = curve_rows(res, [ref["frames"][i] for i in idx],
+                      [ref["frame_errors"][i] for i in idx], f"22{sub} {run}")
+    pay = out["payload"]
+    for key in ("lam2", "lam2_stable_at_1dB", "thr_snr_db"):
+        if not np.isclose(pay[key], ref[key], rtol=1e-12, atol=0):
+            raise AssertionError(f"22{sub}: {key} {pay[key]} against the stored {ref[key]}")
+    log(f"# phase 22{sub}: {run} (stored codec, graph N={graph.nvar} with "
+        f"{len(getattr(graph, 'phantoms', ()))} phantom edge(s), the codec's "
+        f"{codec.graph.num_edges} edges) " + run_summary(res, sim, peak, f"B={B}")
+        + f", the table tail in {sim.decoder.tail_runs} of {int(res.frames.sum()) // B} "
+        f"batches, the {loops[0]} loop as in the JAX package; {text}; FER " + rows
+        + f"; lam2 {pay['lam2']:.6f}, stable limit {pay['lam2_stable_at_1dB']:.6f}, "
+        f"threshold {pay['thr_snr_db']} dB: the stored values; on {smi}")
+    hold_segments(sim.decoder, [B, B // 4], f"phase 22{sub} {run}", results)
+
+
 def example_workflows(dev, smi, codecs, tmp, results, example_launches):
     """Phase 22: the DVB-S2-scale waterfalls and BASELINE.json config 2
     through the port's example workflows (lut_ldpc_torch/examples), each
     curve held against its TPU-era file in docs/waterfall/ by fer_test."""
     import tempfile
 
-    import numpy as np
     import torch
 
     from lut_ldpc_torch.cli import ber_sim
@@ -1932,33 +2005,16 @@ def example_workflows(dev, smi, codecs, tmp, results, example_launches):
                      "22d QC against gather") + f"; fer_z_scores {payload['fer_z_scores']}")
     log(f"# phase 22d took {time.perf_counter() - t0:.1f}s")
 
-    # 22e: the stored thr-0.67 codec on the alist's realization, 8192 frames
-    # a point, skipping off (run_dvbs2_lut's Nfers, 10000, is above them)
-    t0 = time.perf_counter()
-    snr, out = np.array([1.5, 1.6, 1.7, 1.8]), {}
-
-    def lut67_run():
-        out["payload"], res, _, sim = dw.run_dvbs2_lut(graph, codecs["stored"], snr, 8192, B,
-                                                       tmp, device=dev)
-        return res, sim
-
-    res, sim, peak, text = monte_carlo(lut67_run, "22e dvbs2_lut", example_launches)
-    ref = stored("dvbs2_N64800_lut_q4.json")
-    idx = [ref["snr_db"].index(float(s)) for s in snr]
-    rows = curve_rows(res, [ref["frames"][i] for i in idx],
-                      [ref["frame_errors"][i] for i in idx], "22e dvbs2_lut")
-    pay = out["payload"]
-    for key in ("lam2", "lam2_stable_at_1dB", "thr_snr_db"):
-        if not np.isclose(pay[key], ref[key], rtol=1e-12, atol=0):
-            raise AssertionError(f"22e: {key} {pay[key]} against the stored {ref[key]}")
-    log("# phase 22e: dvbs2_lut (stored codec) " + run_summary(res, sim, peak, f"B={B}")
-        + f", the table tail in {sim.decoder.tail_runs} of {int(res.frames.sum()) // B} "
-        f"batches; {text}; FER " + rows + f"; lam2 {pay['lam2']:.6f}, stable limit "
-        f"{pay['lam2_stable_at_1dB']:.6f}, threshold {pay['thr_snr_db']} dB: the stored "
-        f"values; on {smi}")
-    hold_segments(sim.decoder, [B, B // 4], "phase 22e dvbs2_lut", results)
-    del sim
-    log(f"# phase 22e took {time.perf_counter() - t0:.1f}s")
+    # 22e / 22g: the stored thr-0.67 codec on the alist's realization and the
+    # stored QC codec on the Z=360 one (load_periodic_alist, one phantom
+    # edge), 8192 frames a point, skipping off (run_dvbs2_lut's Nfers,
+    # 10000, is above them), both against the alist curve (the same matrix)
+    for sub, run, g, qc_tag in (("e", "dvbs2_lut", graph, ""),
+                                ("g", "dvbs2_lut_qc", dw.graph_of("dvbs2_lut_qc"), "_qc")):
+        t0 = time.perf_counter()
+        stored_run(sub, run, g, codecs["stored" + qc_tag], qc_tag, tmp, dev, smi, results,
+                   example_launches)
+        log(f"# phase 22{sub} took {time.perf_counter() - t0:.1f}s")
 
     # 22f: BASELINE.json config 2 through the ber_sim CLI: the INI as it is,
     # its results and designed codec sent to a temporary directory
@@ -1989,6 +2045,95 @@ def example_workflows(dev, smi, codecs, tmp, results, example_launches):
                                          "22f config 2") + f" on {smi}")
     hold_segments(sim.decoder, [cfg.sim.batch_size], "phase 22f config 2", results)
     log(f"# phase 22f took {time.perf_counter() - t0:.1f}s")
+
+
+def fused_hold(dec, B, scan_len, what, results):
+    """The fused harness of perf_regress on the card against its plain
+    version: on the harness's own inputs (integers in [-2000, 2000)), one
+    cn_qc_pass, then one and scan_len chained iterations (iteration 0's
+    parameters) equal on the real rows (tolerance zero); the differences go
+    into the kernels line.  Returns the log text."""
+    import torch
+
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.tools import perf_regress as pr
+
+    def err(a, b, real):
+        return float((a[real].double() - b[real].double()).abs().max())
+
+    m, cha = pr.fused_inputs(dec, B)
+    cn, synd = qk.cn_qc_pass(m, dec.tables)
+    cn_ref, synd_ref = qk.cn_qc_pass_ref(m, dec.tables)
+    errs = {"cn_qc_pass": err(cn, cn_ref, dec.tables.cn_real), "vn_qc_pass": 0.0}
+    for n in (1, scan_len):
+        errs["vn_qc_pass"] = max(errs["vn_qc_pass"], err(
+            pr.fused_chain(dec, m, cha, n), pr.fused_chain(dec, m, cha, n, plain=True),
+            dec.tables.vn_real))
+    torch.cuda.synchronize()
+    if any(errs.values()) or not torch.equal(synd, synd_ref):
+        raise AssertionError(f"{what}: the fused chain differs from its plain version: "
+                             f"{errs}, syndromes equal {torch.equal(synd, synd_ref)}")
+    for name, e in errs.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    return (f"{what} {dec.dtype} B={B}: cn_qc_pass and 1 and {scan_len} chained iterations "
+            f"equal to the plain chain on the real rows")
+
+
+def regress_phase(dev, smi, codecs, results):
+    """Phase 23: lut_ldpc_torch.tools.perf_regress on the card: `record`
+    twice into a temporary ledger (phase 2's codecs handed over where the
+    designs are the same), `check` 0 on the two, then 1 once a third record
+    with the headline decode 1.5 times slower is appended.  Every pass went
+    through the CN frames or the generated VN kernels, none through a
+    table-driven witness, no block kernel ran.  Then the kernels at the
+    shapes the records gave them, against their plain versions: both fused
+    chains on their own inputs, and the CN frames and generated VN kernels
+    of the N=64800 QC, DVB-S2 and PEG decoders at B=1024 (and 1021; the
+    headline's B=8192 decoders are phases 3-5's).  Returns the passes per
+    kernel."""
+    import tempfile
+
+    from lut_ldpc_torch.decoder import ArithLUTDecoder
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.tools import perf_regress as pr
+
+    with tempfile.TemporaryDirectory() as d:
+        ledger = os.path.join(d, "kernels_torch.json")
+        qk.reset_launches()
+        for i in (1, 2):
+            t0 = time.perf_counter()
+            entry = pr.record(dev, codecs=codecs)
+            pr.append(entry, ledger)
+            log(f"# phase 23: record {i} in {time.perf_counter() - t0:.1f}s: "
+                + json.dumps(entry))
+        passes = dict(qk.LAUNCHES)
+        run = LOOP_PAIRS["qc"] + LOOP_PAIRS["std"]
+        if (any(qk.WITNESS_LAUNCHES.values()) or not all(passes[n] for n in run)
+                or any(passes[n] for n in LOOP_PAIRS["blocks"])):
+            raise AssertionError(f"phase 23: passes {passes}, on a witness "
+                                 f"{dict(qk.WITNESS_LAUNCHES)}")
+        if entry["compile_vn_units"] < 1:
+            raise AssertionError("phase 23: compile_s compiled no generated VN unit")
+        if pr.check(0.12, ledger) != 0:
+            raise AssertionError("phase 23: check flags two records of one tree")
+        slow = dict(entry, ts=time.time(), headline_decode_ms=entry["headline_decode_ms"] * 1.5)
+        pr.append(slow, ledger)
+        if pr.check(0.12, ledger) != 1:
+            raise AssertionError("phase 23: check misses a 1.5x headline decay")
+    log(f"# phase 23: perf_regress record x2, check 0, a 1.5x headline decay check 1; "
+        f"passes {', '.join(f'{n} {passes[n]}' for n in run)}, none on a witness; "
+        f"compile_s built {entry['compile_vn_units']} VN units cold; on {smi}")
+    t0 = time.perf_counter()
+    for name, B, scan_len in (("headline", 8192, 16), ("n64800_qc", 1024, 8)):
+        log("# phase 23: " + fused_hold(pr.fused_decoder(codecs[name], dev), B, scan_len,
+                                         f"fused {name}", results))
+    held = [("n64800_qc", pr.fused_decoder(codecs["n64800_qc"], dev))] + [
+        (name, ArithLUTDecoder(codecs[name], dev, early_exit=True)) for name in ("dvbs2", "peg")]
+    for name, dec in held:
+        hold_segments(dec, [1024], f"phase 23 {name} ({dec.loop} loop)", results)
+    del held
+    log(f"# phase 23: kernels held at the records' shapes in {time.perf_counter() - t0:.1f}s")
+    return passes
 
 
 def check_worker_golden(what, golden, frame0, max_iters):
@@ -2078,14 +2223,15 @@ def main():
                      "dvbs2_gather": LUTCodec.design(
                          TannerGraph.from_alist(dw.DVBS2_ALIST), b64.DESIGN_THR**2,
                          max_iters=b64.MAX_ITERS, Nq_Cha=16, Nq_Msg=16),
-                     "stored": dw.stored_codec(None, "", tmp)}
+                     "stored": dw.stored_codec(None, "", tmp),
+                     "stored_qc": dw.stored_codec(None, "_qc", tmp)}
         auto = [(build_arith_prefix_spec, np.int16, ("auto",)),
                 (build_arith_spec, np.float32, ("auto",))]
+        prefixes = [(build_arith_prefix_spec, dt, ("auto",)) for dt in (np.int16, np.float32)]
         start_vn_builds({"QC N=64800": (ex_codecs["lut64800_qc"], auto),
                          "DVB-S2 from the alist": (ex_codecs["dvbs2_gather"], full),
-                         "DVB-S2 thr 0.67": (ex_codecs["stored"], [
-                             (build_arith_prefix_spec, dt, ("auto",))
-                             for dt in (np.int16, np.float32)])}, libs)
+                         "DVB-S2 thr 0.67": (ex_codecs["stored"], prefixes),
+                         "DVB-S2 thr 0.67 QC": (ex_codecs["stored_qc"], prefixes)}, libs)
         finish_builds(builds, libs)
         log(f"#   {len(builds) + len(libs)} libraries built side by side in "
             f"{time.perf_counter() - t0:.1f}s")
@@ -2140,13 +2286,20 @@ def main():
     example_workflows(dev, smi, ex_codecs, tmp, results, example_launches)
     shutil.rmtree(tmp)
     log(f"# phase 22 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    regress_launches = regress_phase(dev, smi, {
+        "headline": head_codec, "n64800_qc": ex_codecs["lut64800_qc"], "dvbs2": dvb_codec,
+        "peg": codec}, results)
+    log(f"# phase 23 took {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"mesh": mesh_line}))
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
              launches=launches[n], **results[n], example_launches=example_launches[n][0],
-             example_one_frame_launches=example_launches[n][1])
+             example_one_frame_launches=example_launches[n][1],
+             regress_launches=regress_launches[n])
         for n in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

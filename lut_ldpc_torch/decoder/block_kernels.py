@@ -302,6 +302,7 @@ def run_vn_block(m3: torch.Tensor, cha: torch.Tensor, prog: VNBlockProgram,
             prog.prm.shape[1], d, len(prog.ops), int(prog.use_tot), n_pad,
             n_real, B, qk._stream(dev))
         qk._raise_on(err, "vn_block_pass")
+        qk.WITNESS_LAUNCHES["vn_block_pass"] += 1
     else:
         lib, c = vn_codegen.block_class(prog, m3.dtype)
         err = lib.handle().lut_vn_block_class(

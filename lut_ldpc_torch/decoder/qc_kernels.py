@@ -42,8 +42,9 @@ with nothing to launch returns ``NOTHING_TO_LAUNCH``, which counts none).
 ``ONE_FRAME_LAUNCHES`` counts those class launches of the CN frames and the
 generated QC and std VN kernels that ran at one frame a thread (a batch
 width or an array start that the vector path does not take).
-``PLAIN_RUNS`` counts the wrappers' calls on CPU tensors, which run the
-plain versions.
+``WITNESS_LAUNCHES`` counts the passes that went through a table-driven
+witness (``generic=True``).  ``PLAIN_RUNS`` counts the wrappers' calls on
+CPU tensors, which run the plain versions.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ from .params import QCTables, StdTables, VNParams
 __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "cn_std_pass", "vn_std_pass", "cn_std_pass_ref", "vn_std_pass_ref",
            "build_kernels", "start_builds", "unit_path", "ptxas_cn_frames",
-           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "ONE_FRAME_LAUNCHES", "PLAIN_RUNS",
+           "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "ONE_FRAME_LAUNCHES",
+           "WITNESS_LAUNCHES", "PLAIN_RUNS",
            "NOTHING_TO_LAUNCH",
            "reset_launches", "UNITS", "KERNEL_SOURCE", "CN_SOURCE"]
 
@@ -92,6 +94,8 @@ CLASS_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # of those, the launches at one frame a thread (CN frames, generated QC and
 # std VN kernels)
 ONE_FRAME_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
+# passes through a table-driven witness (generic=True)
+WITNESS_LAUNCHES = dict.fromkeys(LAUNCHES, 0)
 # wrapper calls on CPU tensors (the plain versions ran)
 PLAIN_RUNS = dict.fromkeys(LAUNCHES, 0)
 
@@ -101,7 +105,8 @@ _libs: dict = {}    # unit -> loaded library
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, ONE_FRAME_LAUNCHES, PLAIN_RUNS):
+    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, ONE_FRAME_LAUNCHES,
+                   WITNESS_LAUNCHES, PLAIN_RUNS):
         for k in counts:
             counts[k] = 0
 
@@ -318,6 +323,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
             tables.cn_dst.data_ptr(), tables.cn_deg.data_ptr(), R, tables.Z,
             tables.max_dc, B, stream)
         _raise_on(err, "cn_qc_pass")
+        WITNESS_LAUNCHES["cn_qc_pass"] += 1
     else:
         lib, aligned = _load_cn(is_f32), _aligned(m_vn, m_cn)
         for lo, hi, d in tables.cn_runs:
@@ -467,6 +473,7 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
             params.prm.data_ptr(), int(it), params.prm.shape[1], R, tables.Z,
             tables.max_dv, B, _stream(dev))
         _raise_on(err, "vn_qc_pass")
+        WITNESS_LAUNCHES["vn_qc_pass"] += 1
     else:
         lib = vn_codegen.library(params, m_cn.dtype, "qc").handle()
         aligned = _aligned(m_cn, cha, m_vn, bits)
@@ -564,6 +571,7 @@ def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
             synd.data_ptr(), tables.cn_cls.data_ptr(), len(tables.cn_blocks),
             tables.nchk_pad, tables.max_dc, B, _stream(m_vn.device))
         _raise_on(err, "cn_std_pass")
+        WITNESS_LAUNCHES["cn_std_pass"] += 1
         out = out_cn.index_select(0, tables.perm_c2v)
     else:
         out = torch.empty_like(m_vn)
@@ -631,6 +639,7 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
             params.prm.data_ptr(), int(it), params.prm.shape[1],
             tables.nvar_pad, tables.max_dv, B, _stream(dev))
         _raise_on(err, "vn_std_pass")
+        WITNESS_LAUNCHES["vn_std_pass"] += 1
     else:
         lib = vn_codegen.library(params, m_c2v.dtype, "std").handle()
         aligned = _aligned(m_c2v, cha, m_vn, bits)

@@ -32,11 +32,15 @@ one holds it, else a unit of its own).
 Several units build side by side: both return at once and
 ``VNLibrary.handle`` waits, loads, and raises if the compiler failed:
 nothing falls back to another kernel.  To force a rebuild delete
-``build/torch_kernels/`` or pass ``force=True``.
+``build/torch_kernels/`` or pass ``force=True``.  Inside ``cold_units(d)``
+every unit is compiled anew into the directory ``d``, the units built
+before left alone (what a first decoder costs, timed without touching
+``build/torch_kernels/``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -49,7 +53,7 @@ from .vn_program import CHA, MSG, build_vn_program
 
 __all__ = ["generate_source", "block_source", "source_hash", "start_build",
            "library", "start_block_build", "block_library", "block_class",
-           "VNLibrary", "ptxas_by_kernel", "FRAMES_SOURCE", "MAX_CLASS_PARAMS"]
+           "cold_units", "VNLibrary", "ptxas_by_kernel", "FRAMES_SOURCE", "MAX_CLASS_PARAMS"]
 
 FRAMES_SOURCE = os.path.join(CSRC_DIR, "vn_frames.cuh")
 # floats of one class's parameter slice: it travels as a kernel argument
@@ -378,6 +382,23 @@ def block_library(progs, dtype) -> VNLibrary:
     """The unit of `progs`, its build started if need be."""
     lib = _libs.get((tuple(p.key for p in progs), dtype, "block"))
     return lib if lib is not None else start_block_build(progs, dtype)
+
+
+@contextlib.contextmanager
+def cold_units(build_dir: str):
+    """Inside the block every unit that is asked for is compiled into
+    `build_dir` (an empty directory) and loaded from there; the units
+    started before are neither used nor replaced, and are the ones found
+    again after the block.  Yields the block's own unit table."""
+    global BUILD_DIR, _libs, _block_classes
+    saved = BUILD_DIR, _libs, _block_classes
+    with _libs_lock:
+        BUILD_DIR, _libs, _block_classes = build_dir, {}, {}
+    try:
+        yield _libs
+    finally:
+        with _libs_lock:
+            BUILD_DIR, _libs, _block_classes = saved
 
 
 def block_class(prog, dtype) -> tuple:

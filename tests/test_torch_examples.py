@@ -251,6 +251,53 @@ def test_stored_codec_decoder_class_equals_jax(monkeypatch):
     assert type(got).__name__ == type(want).__name__ == "HybridLUTDecoder"
 
 
+def _jax_loop(seg):
+    """The loop a JAX ArithLUTDecoder segment runs (where its kernels run):
+    "qc" (_build_qc_pallas), "std" (_build_std_kernels) or "blocks" (the XLA
+    _build, the port's block loop); the phantom guards of
+    arith_decoder.py:881 and :1116."""
+    phantoms_ok = not any(p["td"] != 1 for p in seg._ph)
+    if seg._use_qc_kernels() and phantoms_ok:
+        return "qc"
+    if seg._use_std_kernels() and phantoms_ok:
+        return "std"
+    return "blocks"
+
+
+def _segments(dec):
+    return [s for s in (getattr(dec, "pre", None), getattr(dec, "mid", None),
+                        getattr(dec, "fin", None)) if s is not None] or [dec]
+
+
+@pytest.mark.parametrize("run", ["dvbs2_lut", "dvbs2_lut_qc"])
+def test_stored_codecs_pick_the_jax_loop(run, monkeypatch):
+    """BERSim on each stored thr-0.67 codec with the run's graph (the alist's
+    realization; for dvbs2_lut_qc the Z=360 one of load_periodic_alist) at
+    B=2048: the port's decoder class and the loop of every segment equal the
+    JAX BERSim's where its kernels run.  A codec file keeps no QC structure,
+    so both take the std loop."""
+    from lut_ldpc_torch.sim import BERSim, BERSimConfig, LDPCConfig, SimConfig
+
+    qc_tag = "_qc" if run == "dvbs2_lut_qc" else ""
+    path = os.path.join(WATERFALL, f"dvbs2_N64800_lut_q4{qc_tag}_codec.npz")
+    if qc_tag:
+        pgraph = dvbs2_waterfall.graph_of(run)
+        jgraph = jax_dvbs2.load_periodic_alist(dvbs2_waterfall.DVBS2_ALIST)[0]
+        assert pgraph.qc is not None and len(pgraph.phantoms) == 1
+    else:
+        jgraph = JaxGraph.from_alist(dvbs2_waterfall.DVBS2_ALIST)
+        pgraph = TannerGraph.from_alist(dvbs2_waterfall.DVBS2_ALIST)
+    snr, batch = np.array([1.6]), dvbs2_waterfall.BATCH
+    cfg = BERSimConfig(sim=SimConfig(SNRdB=snr, Nframes=batch, batch_size=batch),
+                       ldpc=LDPCConfig(zero_codeword=True))
+    got = BERSim(cfg, pgraph, "cpu", codec=LUTCodec.load(path)).decoder
+    monkeypatch.setenv("LUT_LDPC_PALLAS_INTERPRET", "1")
+    want = jsim.BERSim(_jax_cfg(snr, batch, batch), jgraph, codec=JaxCodec.load(path)).decoder
+    assert type(got).__name__ == type(want).__name__ == "HybridLUTDecoder"
+    loops = [s.loop for s in _segments(got)]
+    assert loops == [_jax_loop(s) for s in _segments(want)] == ["std", "std"]
+
+
 # -- dvbs2_qc_equivalence -----------------------------------------------------
 @pytest.fixture(scope="module")
 def toy_alist(tmp_path_factory):
