@@ -7,9 +7,10 @@ Phases (each prints; any failure raises and exits non-zero):
  2. design the headline, the N=64800 PEG and the two DVB-S2 codecs (and
     load the two stored thr-0.67 codecs of phase 22), and
     meanwhile build every CUDA library side by side, one nvcc each: the
-    kernel library's three units (the CN frames of csrc/cn_frames.cuh for
-    int16 and for float32 messages, and csrc/qc_kernels.cu: the CN block
-    kernel and the table-driven witnesses), one generated VN unit per
+    kernel library's four units (the CN frames of csrc/cn_frames.cuh for
+    int16 and for float32 messages, csrc/qc_kernels.cu: the CN block
+    kernel and the table-driven witnesses, and csrc/loop_glue.cu: the
+    value-domain loop's glue), one generated VN unit per
     arithmetic spec and loop (lut_ldpc_torch/decoder/vn_codegen.py in the
     frames of csrc/vn_frames.cuh: the QC and std class kernels, and the
     block kernels of the headline and PEG block loops); print the build
@@ -180,7 +181,18 @@ Phases (each prints; any failure raises and exits non-zero):
     kernel.  Then the kernels at the records' shapes against their plain
     versions: both fused chains on their own inputs (one CN pass, one and
     all chained iterations), and the CN frames and generated VN kernels of
-    the N=64800 QC, DVB-S2 and PEG decoders at B=1024 and 1021.
+    the N=64800 QC, DVB-S2 and PEG decoders at B=1024 and 1021;
+24. after phase 23, the value-domain loop's glue (csrc/loop_glue.cu:
+    loop_state_kernel, latch_kernel, init_values_kernel): each against its
+    plain version, max_abs_err 0, at the headline (QC int16 and the block
+    loop, B=8192 and 8189), DVB-S2 (QC float32 with its phantom, 4096 /
+    4093) and PEG std (int16, 2048 / 2045) shapes, with times, plain times,
+    bounds and the latch's torch.where, the latch with no frame converging
+    and the VN pass beside it; then the headline,
+    headline block-loop, DVB-S2 and PEG decodes each with the launch counts
+    set to 0 just before (every glue kernel of its path launched, the first
+    256 frames equal to the plain twin's), the headline's time and one
+    traced headline decode (busy, passes, glue, idle share, glue kernels).
 Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21, 22, 23) must have run each
 CN and VN pass on the CN frames, the CN block kernel or the generated VN
 kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
@@ -194,8 +206,10 @@ kernel's time, and `cn_std_pass` `unfolded_ms`; the QC pair's
 `mesh_launches` those of phase 21a's meshed run, the std pair's
 `sim_launches` those of phase 18's LUT run; `example_launches` the passes
 of phase 22's runs and `example_one_frame_launches` their class launches
-at one frame a thread, `regress_launches` the passes of phase 23), the card,
-and last the device line.
+at one frame a thread, `regress_launches` the passes of phase 23; the glue
+rows of phase 24 have `launches` from its four main-path decodes and their
+times at the first shapes they were timed at (`shapes`; the latch's
+`idle_ms` with no frame converging)), the card, and last the device line.
 """
 
 import json
@@ -217,6 +231,13 @@ REPLACES = {"cn_qc_pass": "lut_ldpc_tpu/decoder/qc_kernels.py:549",
             "cn_block_pass": "lut_ldpc_tpu/decoder/pallas_kernels.py:115",
             "vn_block_pass": "lut_ldpc_tpu/decoder/pallas_kernels.py:227"}
 
+
+GLUE_SOURCE = "lut_ldpc_torch/csrc/loop_glue.cu"  # the loop's state, latch and init
+# the value-domain loop's glue (phase 24): no TPU kernel computed it; each
+# replaces the JAX loop's glue at the line given
+GLUE_REPLACES = {"loop_state": "lut_ldpc_tpu/decoder/arith_decoder.py:1285",
+                 "latch": "lut_ldpc_tpu/decoder/arith_decoder.py:1286",
+                 "init_values": "lut_ldpc_tpu/decoder/arith_decoder.py:1253"}
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
@@ -2136,6 +2157,211 @@ def regress_phase(dev, smi, codecs, results):
     return passes
 
 
+def _err(a, b):
+    """Largest absolute difference of two tensors of one shape."""
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def glue_check(dec, lc, lm, what, rows, reps):
+    """Phase 24: the loop's glue kernels of `dec` at the width B of the
+    labels (lc, lm: (B, nvar) int32 on the card) and at B - 3 against their
+    plain versions, max_abs_err 0 or the script fails: the init kernel on
+    the labels as int32 and as int64, the loop-state kernel and its live
+    count, and the latch kernel on random flags (about one frame in 19
+    converging, as in a decode of about 19 iterations).  At B the times
+    (CUDA events), the plain versions' times, the bounds, the latch's
+    torch.where, the latch with no frame converging, and the loop's VN pass
+    on iteration 0's values beside them; fills rows[name] with the largest
+    error over the widths and the times at the first shapes it meets."""
+    import torch
+
+    from lut_ldpc_torch import profile_kernels as pk
+    from lut_ldpc_torch.decoder import loop_glue as lg
+
+    dev, nvp, nvar = dec.device, dec.layout.nvar_pad, dec.nvar
+    E, size = dec.layout.num_edges_vn, dec.dtype.itemsize
+    B = lc.shape[0]
+    it = dec.S // 2
+    init_args = (dec._init_tab, dec.ten.leaf_cha, dec.ten.leaf_msg0, dec._pin, E)
+    parts = []
+    for width in (B, B - 3):
+        gen = torch.Generator(dev).manual_seed(width)
+        flags = lambda p: torch.rand(width, generator=gen, device=dev) < p
+        bits = lambda: torch.randint(0, 2, (nvp, width), generator=gen, device=dev,
+                                     dtype=torch.int8)
+        err = dict.fromkeys(("init_values", "loop_state", "latch"), 0.0)
+        for lab in (torch.int32, torch.int64):
+            cha, msg = lc[:width].to(lab), lm[:width].to(lab)
+            got = lg.init_values(cha, msg, *init_args)
+            want = lg.init_values_ref(cha, msg, *init_args)
+            err["init_values"] = max(err["init_values"],
+                                     *(_err(g, w) for g, w in zip(got, want)))
+        del got, want
+        unan, synd, done = flags(0.5), flags(0.5), flags(0.3)
+        iters = torch.randint(0, 50, (width,), generator=gen, device=dev, dtype=torch.int32)
+        live = lg.LiveCount(dev)
+        d_k, i_k, d_r, i_r = done.clone(), iters.clone(), done.clone(), iters.clone()
+        conv_k = lg.loop_state(unan, synd, d_k, i_k, it, live)
+        conv_r = lg.loop_state_ref(unan, synd, d_r, i_r, it)
+        err["loop_state"] = max(_err(conv_k, conv_r), _err(d_k, d_r), _err(i_k, i_r),
+                                abs(live.read() - int((~d_r).sum())))
+        conv, prev, lat0 = flags(1 / 19), bits(), bits()
+        l_k, l_r = lat0.clone(), lat0.clone()
+        lg.latch(conv, prev, l_k)
+        lg.latch_ref(conv, prev, l_r)
+        err["latch"] = _err(l_k, l_r)
+        bad = {n: e for n, e in err.items() if e != 0.0}
+        if bad:
+            raise AssertionError(f"{what} B={width}: kernels differ from their plain "
+                                 f"versions: {bad}")
+        for n, e in err.items():
+            rows.setdefault(n, {"max_abs_err": 0.0})
+            rows[n]["max_abs_err"] = max(rows[n]["max_abs_err"], e)
+        if width != B:
+            continue
+        # times at B
+        n_conv = int(conv.sum())
+        t = {"init_values": (
+            pk.cuda_ms(lambda: lg.init_values(lc, lm, *init_args), reps),
+            pk.cuda_ms(lambda: lg.init_values_ref(lc, lm, *init_args), 2), None,
+            pk.bound_ms(2 * B * nvar * 4 + (nvp + E) * B * size, 0))}
+        t["loop_state"] = (
+            pk.cuda_ms(lambda: lg.loop_state(unan, synd, d_k, i_k, it, live), reps),
+            pk.cuda_ms(lambda: lg.loop_state_ref(unan, synd, d_r, i_r, it), reps), None,
+            pk.bound_ms(13 * B + 4, 0))
+        live.read()
+        t["latch"] = (
+            pk.cuda_ms(lambda: lg.latch(conv, prev, l_k), reps),
+            pk.cuda_ms(lambda: lg.latch_ref(conv, prev, l_r), reps),
+            pk.cuda_ms(lambda: torch.where(conv[None, :], prev, l_r, out=l_r), reps),
+            pk.bound_ms(B + 2 * nvp * n_conv, 0))
+        idle = pk.cuda_ms(lambda: lg.latch(torch.zeros_like(conv), prev, l_k), reps)
+        vcha, state = dec._init(lc, lm)
+        m_cn = dec._cn(state[0])[0]
+        del state
+        vn_ms = pk.cuda_ms(lambda: dec._vn(m_cn, vcha, 0), reps)
+        del m_cn, vcha
+        for n, (ms, plain, lib, (bnd, by)) in t.items():
+            parts.append(f"{n} {ms:.4f} ms (plain {plain:.4f}"
+                         + (f", torch.where {lib:.4f}" if lib is not None else "")
+                         + f", bound {bnd:.4f} {by})")
+            if "ms" not in rows[n]:  # the first shapes a kernel was timed at
+                rows[n].update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                               bound_by=by, shapes=f"{what}, B={B}")
+        rows["latch"].setdefault("idle_ms", idle)
+        parts.append(f"latch with {n_conv} of {B} frames converging {t['latch'][0]:.4f} ms, "
+                     f"with none {idle:.4f}, beside the VN pass {vn_ms:.4f} ms "
+                     f"(bound {bounds(dec, B)['vn'][0]:.4f})")
+    log(f"# {what}: glue kernels equal to their plain versions at B={B} and {B - 3} "
+        f"(max_abs_err 0); " + "; ".join(parts))
+
+
+def glue_phase(dev, smi, head_codec, dvb_codec, peg_codec, rows, widths=(8192, 4096, 2048)):
+    """Phase 24: the value-domain loop's glue on the card (csrc/loop_glue.cu).
+    Each glue kernel against its plain version (``glue_check``) at the
+    headline shapes (QC int16 and the block loop, B=8192 and 8189), DVB-S2
+    (QC float32 with its phantom, 4096 / 4093) and PEG std (int16, 2048 /
+    2045), on the labels the main path decodes; then that main path, the
+    launch counts set to 0 just before each decode and read just after
+    (the headline and DVB-S2 decoders of make_staged_decoder, the headline
+    batch on the block loop, the PEG decoder at B=2048): every glue kernel
+    launched, the first 256 frames equal to the plain twin's; last the
+    headline's time and one traced decode (device busy, glue: the device
+    time of every kernel other than the CN and VN passes, idle share).
+    widths: the headline's, DVB-S2's and PEG's batch widths.  Fills
+    rows[name]["launches"]."""
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import bench, bench_n64800 as b64
+    from lut_ldpc_torch.decoder import (ArithLUTDecoder, build_arith_prefix_spec,
+                                        make_staged_decoder, plain_twin)
+    from lut_ldpc_torch.decoder import loop_glue as lg
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.profile_decode import PASS_KERNEL, device_breakdown
+
+    wh, wd, wp = widths
+    head_spec = build_arith_prefix_spec(head_codec, dtype=np.int16)
+    peg_spec = build_arith_prefix_spec(peg_codec, dtype=np.int16)
+    labels = {}
+    for name, codec, B, snr in (("headline", head_codec, wh, 2.0),
+                                ("DVB-S2", dvb_codec, wd, b64.SNR_DB),
+                                ("PEG", peg_codec, wp, b64.SNR_DB)):
+        labels[name] = tuple(torch.as_tensor(a, device=dev)
+                             for a in bench.channel_labels(codec, B, snr))
+    # (what, labels, the decoder checked, its loop, reps; the main-path decoder)
+    cases = [
+        ("headline QC int16", "headline", lambda: ArithLUTDecoder(head_codec, dev,
+                                                                  spec=head_spec), "qc", 20,
+         lambda: make_staged_decoder(head_codec, dev)),
+        ("headline block loop int16", "headline", lambda: ArithLUTDecoder(
+            head_codec, dev, spec=head_spec, loop="blocks"), "blocks", 20, None),
+        ("DVB-S2 QC float32", "DVB-S2", lambda: ArithLUTDecoder(dvb_codec, dev), "qc", 10,
+         lambda: make_staged_decoder(dvb_codec, dev, max_batch=wd)),
+        ("PEG std int16", "PEG", lambda: ArithLUTDecoder(peg_codec, dev, spec=peg_spec),
+         "std", 5, lambda: make_staged_decoder(peg_codec, dev, max_batch=wp))]
+    for n in ("loop_state", "latch", "init_values"):
+        rows.setdefault(n, {"max_abs_err": 0.0})["launches"] = 0
+    head = None
+    for what, name, build, loop, reps, main in cases:
+        dec = build()
+        if dec.loop != loop:
+            raise AssertionError(f"phase 24: {what} on the {dec.loop} loop")
+        lc, lm = labels[name]
+        glue_check(dec, lc, lm, f"phase 24: {what}", rows, reps)
+        if main is not None:  # the block loop's decoder is its own main path
+            dec = main()
+        qk.reset_launches()
+        lg.reset_launches()
+        out = dec(lc, lm)
+        torch.cuda.synchronize()
+        counts = dict(lg.LAUNCHES)
+        if min(counts.values()) < 1 or any(qk.WITNESS_LAUNCHES.values()):
+            raise AssertionError(f"phase 24: the {what} decode launched {counts} glue "
+                                 f"kernels, {dict(qk.WITNESS_LAUNCHES)} witnesses")
+        for n, c in counts.items():
+            rows[n]["launches"] += c
+        check_shapes(out, lc.shape[0], lc.shape[1])
+        n = 256
+        same([o[:n] for o in out], plain_twin(dec)(lc[:n], lm[:n]),
+             f"phase 24: {what} kernels vs plain twin")
+        log(f"# phase 24: {what}: {type(dec).__name__} decode of {lc.shape[0]} frames: "
+            f"glue launches {counts}; first {n} frames equal to the plain twin; mean iters "
+            f"{float(out[2].float().mean()):.4f}")
+        if name == "headline" and main is not None:
+            head = dec
+        del dec, out
+        torch.cuda.empty_cache()
+    lc, lm = labels["headline"]
+    dt_s, _ = bench.time_decode(head, lc, lm, bench.REPS)
+    from torch.profiler import ProfilerActivity, profile
+
+    # a trace that lost the start of the decode (seen once: 21 of 29
+    # loop-state launches) is taken again, up to three times
+    for attempt in range(3):
+        lg.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            head(lc, lm)
+            torch.cuda.synchronize()
+        table, busy, span = device_breakdown(prof)
+        traced = sum(c for name, c, _ in table if "loop_state_kernel" in name)
+        if traced == lg.LAUNCHES["loop_state"]:
+            break
+    if busy == 0.0:
+        raise AssertionError("phase 24: the profiler recorded no device time")
+    passes = sum(ms for name, _, ms in table if PASS_KERNEL.search(name))
+    glue = [(name, c, ms) for name, c, ms in table if not PASS_KERNEL.search(name)]
+    log(f"# phase 24: headline {dt_s * 1e3:.3f} ms a call "
+        f"({wh * head_codec.k / dt_s / 1e6:.3f} Mbit/s); traced ({traced} of "
+        f"{lg.LAUNCHES['loop_state']} loop-state launches in the trace, attempt "
+        f"{attempt + 1}): busy {busy:.3f} ms, "
+        f"passes {passes:.3f}, glue {busy - passes:.3f} ms, idle "
+        f"{100 * (1 - busy / span):.1f} % of the span; glue by kernel: "
+        + "; ".join(f"{name[:60]} x{c} {ms:.3f}" for name, c, ms in glue[:8]) + f" on {smi}")
+
+
 def check_worker_golden(what, golden, frame0, max_iters):
     import numpy as np
 
@@ -2292,6 +2518,11 @@ def main():
         "headline": head_codec, "n64800_qc": ex_codecs["lut64800_qc"], "dvbs2": dvb_codec,
         "peg": codec}, results)
     log(f"# phase 23 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    glue_rows = {}
+    glue_phase(dev, smi, head_codec, dvb_codec, codec, glue_rows)
+    log(f"# phase 24 took {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"mesh": mesh_line}))
 
@@ -2300,7 +2531,9 @@ def main():
              launches=launches[n], **results[n], example_launches=example_launches[n][0],
              example_one_frame_launches=example_launches[n][1],
              regress_launches=regress_launches[n])
-        for n in REPLACES]}))
+        for n in REPLACES] + [
+        dict(name=n, route="cuda", source=GLUE_SOURCE, replaces=r, **glue_rows[n])
+        for n, r in GLUE_REPLACES.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -23,16 +23,25 @@ from one of three places:
   kernel loop applies (a phantom node whose true degree is not 1) or when
   the constructor is given ``loop="blocks"``.
 
-Around the passes, shared by the three:
+Around the passes, shared by the three (``loop_glue``: one kernel each on
+the card):
 
-- labels -> int16/float32 values through the spec's leaf tables;
+- labels -> int16/float32 values through the spec's leaf tables, the
+  grouped channel values and every edge's iteration-0 value in one
+  ``init_values`` launch;
 - the early-exit latch ``conv = unan_p & synd & (it >= 1) & ~done`` with
   bits_p / unan_p from the previous VN pass (:1285) and synd from the CN
-  pass's input signs;
+  pass's input signs: ``loop_state`` right after the CN pass computes conv
+  and updates ``iters`` and ``done`` in place, and ``latch`` copies bits_p
+  into ``latched`` in place for the frames with conv, before the VN pass;
 - the survivor funnel (:1318-1389): when the live count falls to the next
   width, the undecided frames (padded with finished ones) are gathered
-  into a narrower batch by a stable sort of ``done``; the JAX loop's stop
-  test becomes a host read of the live count before every iteration;
+  into a narrower batch by a stable sort of ``done``, and merged back in
+  place at loop exit; the JAX loop's stop test becomes a host read of the
+  live count after every iteration, which ``loop_state`` copies to pinned
+  host memory behind an event: the host waits for it while the VN pass
+  runs, so the queue does not drain (the count is exact, as ``done`` is
+  final once ``loop_state`` ran);
 - raw mode returns the carry for the hybrid decoder's table tail; full
   specs finish with the decision trees and the output syndrome;
 - ``resume`` is the continuation mode (``cont_from`` of both JAX loops):
@@ -65,6 +74,7 @@ import torch
 from ..device import resolve_device
 from . import block_kernels as bk
 from . import fast_layout
+from . import loop_glue as lg
 from . import qc_kernels as qk
 from . import vn_codegen
 from .arith import ArithBuildError, build_arith_spec
@@ -94,8 +104,9 @@ def funnel_widths(B: int) -> list:
 
 
 def as_labels(x, device: torch.device, nvar: int) -> torch.Tensor:
-    """(B, nvar) integer labels on `device` as int64 (numpy arrays are
-    copied there; a tensor on another device raises)."""
+    """(B, nvar) integer labels on `device`, int32 and int64 as they come,
+    other integer types as int64 (numpy arrays are copied there; a tensor on
+    another device raises)."""
     if isinstance(x, torch.Tensor):
         if x.device != device:
             raise ValueError(f"labels on {x.device}, decoder on {device}")
@@ -105,7 +116,7 @@ def as_labels(x, device: torch.device, nvar: int) -> torch.Tensor:
         raise ValueError(f"labels: shape {tuple(x.shape)}, expected (B, {nvar})")
     if x.dtype.is_floating_point or x.dtype == torch.bool:
         raise TypeError(f"labels: dtype {x.dtype}, expected an integer type")
-    return x.long()
+    return x if x.dtype in (torch.int32, torch.int64) else x.long()
 
 
 def seam_bits_unan(layout, m_edges: torch.Tensor):
@@ -124,6 +135,11 @@ def seam_bits_unan(layout, m_edges: torch.Tensor):
         unan &= (neg == neg[:1])[:, : blk.num_nodes].all(dim=0).all(dim=0)
         bits.append(neg[0].to(torch.int8))
     return torch.cat(bits, dim=0), unan
+
+
+def _shares(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a and b hold the same memory."""
+    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
 def _tree_params(spec_tree):
@@ -194,6 +210,10 @@ class ArithLUTDecoder:
                    for d in [blk.degree for blk in blocks] + true_degs]
         self._dec = (None if self.is_prefix else
                      [_tree_params(self.spec.dec_trees[di]) for di in spec_di])
+        self._init_tab = lg.init_table(
+            self.layout, [r for p in self._ph for r in p["rows_ph"].tolist()],
+            self.device)
+        self._live = lg.LiveCount(self.device)
         self._progs = None
         if self.loop == "blocks":
             self._progs = [self._block_program(bi, spec_di[bi])
@@ -240,10 +260,10 @@ class ArithLUTDecoder:
                 node_row=node_row, td=len(real), real=real, rows_ph=idx(ph),
                 rows_real=idx(real), cn_rows_ph=idx(perm_c2v[ph]),
                 cn_rows_real=idx(perm_c2v[real])))
+        # the strongest positive value: min-sum is neutral to it
+        self._pin = (32767 if self.dtype == torch.int16
+                     else float(np.finfo(np.float32).max))
         if self._ph:
-            # the strongest positive value: min-sum is neutral to it
-            self._pin = (32767 if self.dtype == torch.int16
-                         else float(np.finfo(np.float32).max))
             self._rows_ph = torch.cat([p["rows_ph"] for p in self._ph])
             self._cn_rows_ph = torch.cat([p["cn_rows_ph"] for p in self._ph])
 
@@ -334,21 +354,22 @@ class ArithLUTDecoder:
                                 prm).to(self.dtype)
                 for i in range(p["td"])]
 
-    def _channel_values(self, llr_cha):
-        """Grouped channel values (nvar_pad, B)."""
-        cha = as_labels(llr_cha, self.device, self.nvar)
-        return self.ten.leaf_cha[cha[:, self.ten.vn_nodes].T].contiguous()
+    def _values(self, llr_cha, llr_msg=None):
+        """Grouped channel values (nvar_pad, B), and with message labels
+        the iteration-0 edge values (E_vn, B) (every edge its variable's
+        initial message value, phantom rows the pin), else None: one
+        ``init_values`` launch, the kernel or (``kernels=False``, CPU) its
+        plain version."""
+        cha = as_labels(llr_cha, self.device, self.nvar).contiguous()
+        msg = (None if llr_msg is None
+               else as_labels(llr_msg, self.device, self.nvar).contiguous())
+        fn = lg.init_values if self.kernels else lg.init_values_ref
+        return fn(cha, msg, self._init_tab, self.ten.leaf_cha, self.ten.leaf_msg0,
+                  self._pin, self.layout.num_edges_vn)
 
     def _init(self, llr_cha, llr_msg):
-        """Grouped channel values, and the loop state at iteration 0: every
-        edge carries its variable's initial message value (phantom rows the
-        pin)."""
-        vcha = self._channel_values(llr_cha)
-        msg = as_labels(llr_msg, self.device, self.nvar)
-        v0 = self.ten.leaf_msg0[msg[:, self.ten.vn_nodes].T]
-        m_vn = v0[self.ten.edge_node].contiguous()
-        if self._ph:
-            m_vn[self._rows_ph] = self._pin
+        """Grouped channel values, and the loop state at iteration 0."""
+        vcha, m_vn = self._values(llr_cha, llr_msg)
         B = m_vn.shape[1]
         nvp = self.layout.nvar_pad
         dev = self.device
@@ -359,24 +380,41 @@ class ArithLUTDecoder:
             torch.zeros(B, dtype=torch.bool, device=dev),          # done
             torch.zeros((nvp, B), dtype=torch.int8, device=dev),   # latched
             torch.full((B,), self.T, dtype=torch.int32, device=dev)]
-    def _loop(self, vcha, state, start: int = 0):
+
+    def _latch(self, unan_p, synd, done, iters, bits_p, latched, it, live=None):
+        """The early-exit state after iteration `it`'s CN pass, in place on
+        done, iters and latched: ``loop_state`` and ``latch``, or
+        (``kernels=False``) their plain versions, the live count read
+        directly."""
+        if self.kernels:
+            conv = lg.loop_state(unan_p, synd, done, iters, it, live)
+            if it >= 1:
+                lg.latch(conv, bits_p, latched)
+            return
+        conv = lg.loop_state_ref(unan_p, synd, done, iters, it)
+        lg.latch_ref(conv, bits_p, latched)
+        if live is not None:
+            live.value = int((~done).sum())
+
+    def _loop(self, vcha, state, start: int = 0, live: int | None = None,
+              borrowed=()):
         """Iterations [start, S) with the early-exit latch and the funnel
         on state = [m_vn, bits_p, unan_p, done, latched, iters]; returns
-        the state at loop exit."""
+        the state at loop exit.  done, latched and iters are updated in
+        place; live: the count of frames not done at entry (default: all);
+        borrowed: tensors of the state that are the caller's (copied before
+        a funnel merge would write them)."""
         B = state[0].shape[1]
 
-        def step(state, vcha_s, it):
+        def step(state, vcha_s, it, live=None):
             m_vn, bits_p, unan_p, done, latched, iters = state
             state[0] = None  # the caller's reference: m_vn is dead after _cn
             m_cn, synd = self._cn(m_vn)
             del m_vn
             if self.early_exit:
-                conv = unan_p & synd & ~done
-                if it < 1:
-                    conv = torch.zeros_like(conv)
-                latched = torch.where(conv[None, :], bits_p, latched)
-                iters = torch.where(conv, torch.full_like(iters, it), iters)
-                done = done | conv
+                # done and iters final for this step: the live count's copy
+                # is queued here, before the VN pass
+                self._latch(unan_p, synd, done, iters, bits_p, latched, it, live)
             m_vn, bits_p, unan_p = self._vn(m_cn, vcha_s, it)
             return [m_vn, bits_p, unan_p, done, latched, iters]
 
@@ -387,27 +425,28 @@ class ArithLUTDecoder:
 
         widths = funnel_widths(B)
         it = start
+        live = B if live is None else live
         vcha_s = vcha
         stack = []  # per shrink: (survivor idx, full-width state)
         for si in range(len(widths)):
             nxt = widths[si + 1] if si + 1 < len(widths) else 0
-            while it < self.S and int((~state[3]).sum()) > nxt:
-                state = step(state, vcha_s, it)
+            while it < self.S and live > nxt:
+                state = step(state, vcha_s, it, self._live)
+                live = self._live.read()  # waits while the VN pass runs
                 it += 1
             if nxt:
                 # stable ascending sort of done: the first nxt columns hold
                 # every undecided frame, padded with finished ones
                 idx = torch.argsort(state[3].to(torch.uint8), stable=True)[:nxt]
                 stack.append((idx, state))
-                state = [s.index_select(s.dim() - 1, idx).contiguous()
-                         for s in state]
-                vcha_s = vcha_s.index_select(1, idx).contiguous()
+                state = [s.index_select(s.dim() - 1, idx) for s in state]
+                vcha_s = vcha_s.index_select(1, idx)
         for idx, full in reversed(stack):
             merged = []
             for f, s in zip(full, state):
-                f = f.clone()
-                f.index_copy_(f.dim() - 1, idx, s)
-                merged.append(f)
+                if any(f is b for b in borrowed):
+                    f = f.clone()
+                merged.append(f.index_copy_(f.dim() - 1, idx, s))
             state = merged
         return state
 
@@ -436,17 +475,26 @@ class ArithLUTDecoder:
         bits_p / unan_p must be the sign data of the previous segment's
         final VN outputs, so that the first latch here equals the one a
         single decoder would take.  Returns what ``__call__`` returns, or
-        with raw=True what ``raw_carry`` returns."""
+        with raw=True what ``raw_carry`` returns.  The caller's tensors are
+        not written: done, iters and latched (which the loop updates in
+        place) are copied where they would be the caller's own."""
         if not self.early_exit:
             raise ValueError("resume requires early_exit")
         if self._ph:
             raise ValueError("the continuation is not phantom-aware")
         if not 0 <= k <= self.S:
             raise ValueError(f"resume at iteration {k} outside [0, {self.S}]")
-        vcha = self._channel_values(llr_cha)
-        state = self._loop(vcha, [
-            m_vn.to(self.dtype).contiguous(), bits_p.to(torch.int8), unan_p,
-            done, latched.to(torch.int8), iters], start=k)
+        vcha, _ = self._values(llr_cha)
+        lat = latched.to(torch.int8)
+        state = [m_vn.to(self.dtype).contiguous(), bits_p.to(torch.int8), unan_p,
+                 done.clone(), lat.clone() if _shares(lat, latched) else lat,
+                 iters.clone()]
+        # the caller's own tensors: the loop replaces them at its first
+        # step, a funnel merge before it copies them
+        borrowed = [t for t, given in zip(state[:3], (m_vn, bits_p, unan_p))
+                    if _shares(t, given)]
+        state = self._loop(vcha, state, start=k, live=int((~done).sum()),
+                           borrowed=borrowed)
         if raw:
             m_vn, _, _, done, latched, iters = state
             return m_vn, done, latched.to(torch.uint8), iters
@@ -460,10 +508,7 @@ class ArithLUTDecoder:
         m_cn, synd = self._cn(m_vn)
         del m_vn
         if self.early_exit and self.S >= 1:
-            conv = unan_p & synd & ~done
-            latched = torch.where(conv[None, :], bits_p, latched)
-            iters = torch.where(conv, torch.full_like(iters, self.S), iters)
-            done = done | conv
+            self._latch(unan_p, synd, done, iters, bits_p, latched, self.S)
         node_pos = self.ten.vn_node_pos
         if self.is_prefix:
             return latched[node_pos].T.to(torch.uint8), done, iters

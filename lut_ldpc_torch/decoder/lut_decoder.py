@@ -204,8 +204,9 @@ class LUTDecoder:
 
     def __call__(self, llr_cha, llr_msg):
         T = self.codec.max_iters
-        cha = as_labels(llr_cha, self.device, self.nvar)
-        msgs = as_labels(llr_msg, self.device, self.nvar)[:, self._edge_var]
+        # the label tables below are int64: so are the labels they meet
+        cha = as_labels(llr_cha, self.device, self.nvar).long()
+        msgs = as_labels(llr_msg, self.device, self.nvar).long()[:, self._edge_var]
         B = cha.shape[0]
         done = torch.zeros(B, dtype=torch.bool, device=self.device)
         latched = torch.zeros((B, self.nvar), dtype=torch.uint8, device=self.device)

@@ -27,13 +27,14 @@ one launch per degree class).  The table-driven ``cn_*_kernel`` /
 only when a caller passes ``generic=True`` (a second witness and the time
 to compare with); the std CN witness gathers in torch around its kernel.
 
-The kernel library is three units, compiled with nvcc side by side at first
+The kernel library is four units, compiled with nvcc side by side at first
 use into ``build/torch_kernels/`` (shared libraries with a plain C
 interface, loaded with ctypes, launched on the current stream): the CN
 frames of ``cn_frames.cu`` once for int16 and once for float32 messages,
-and ``qc_kernels.cu``, the table-driven witnesses and the CN block kernel
-(wrappers in ``block_kernels``).  Each file is named by a
-sha256 over the text of its sources and the compiler flags
+``qc_kernels.cu``, the table-driven witnesses and the CN block kernel
+(wrappers in ``block_kernels``), and ``loop_glue.cu``, the value-domain
+loop's state, latch and init kernels (wrappers in ``loop_glue``).  Each
+file is named by a sha256 over the text of its sources and the compiler flags
 (``nvcc.library_name``), so a library on disk is never stale.
 ``LAUNCHES`` counts each wrapper's calls that launched a kernel (passes);
 ``CLASS_LAUNCHES`` the launches of the per-degree kernels these made, one
@@ -68,6 +69,7 @@ __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
 
 KERNEL_SOURCE = "qc_kernels.cu"  # the CN block kernel and the table-driven witnesses
 CN_SOURCE = "cn_frames.cuh"      # the CN frames, compiled through cn_frames.cu
+GLUE_SOURCE = "loop_glue.cu"     # the loop's state, latch and init kernels
 # unit -> (the file nvcc compiles, every file of the unit, extra flags);
 # files in csrc/
 UNITS = {
@@ -76,6 +78,8 @@ UNITS = {
                         ("-DLUT_CN_STORAGE=int16_t",)),
     "cn_frames_float32": ("cn_frames.cu", ("cn_frames.cu", CN_SOURCE, "cn_frame.h"),
                           ("-DLUT_CN_STORAGE=float",)),
+    # the value-domain loop's glue (wrappers in loop_glue.py)
+    "loop_glue": (GLUE_SOURCE, (GLUE_SOURCE,), ()),
 }
 MAX_DEGREE = 32  # widest row table the kernels are instantiated for
 MAX_CN_DEGREE = 40  # widest check of the CN frames (kMaxDegree in cn_frame.h)
@@ -179,6 +183,10 @@ _SIGNATURES = {
         "lut_vn_block_pass": [_I] + [_P] * 9 + [_I] * 8 + [_P]},
     "cn_frames_int16": _CN_FRAMES,
     "cn_frames_float32": _CN_FRAMES,
+    "loop_glue": {"lut_loop_state": [_P] * 6 + [_I] * 3 + [_P],
+                  "lut_latch": [_P] * 3 + [_I] * 2 + [_P],
+                  "lut_init_values": [_I] * 2 + [_P] * 4 + [_I, _P, _I, _P, _P,
+                                                            ctypes.c_float] + [_I] * 3 + [_P]},
 }
 
 
