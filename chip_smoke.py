@@ -192,7 +192,32 @@ Phases (each prints; any failure raises and exits non-zero):
     headline block-loop, DVB-S2 and PEG decodes each with the launch counts
     set to 0 just before (every glue kernel of its path launched, the first
     256 frames equal to the plain twin's), the headline's time and one
-    traced headline decode (busy, passes, glue, idle share, glue kernels).
+    traced headline decode (busy, passes, glue, idle share, glue kernels);
+25. after phase 24, one process over the host's cards, up to four (on a
+    host of one card one line says that the phase needs two cards and was
+    not run): (a) with cuda:0 current, five decoder families each built
+    and run on cuda:1 .. cuda:n-1 on the labels cuda:0 decodes, bits, ok
+    and iters equal bit for bit, each family's kernels and glue launched
+    and none on a witness (the headline HybridLUTDecoder at B=8192 and 1.5
+    dB, its table tail included; the PEG N=64800 std loop at B=256; the
+    headline int16 prefix on the block loop at B=2048; the DVB-S2 f32
+    ArithLUTDecoder at B=256; BPDecoder minsum at B=1024); (b) BERSim over
+    dp_mesh(n, "cuda") in one process at the headline configuration (B=8192
+    a card, 1.5 and 2.5 dB, 3 groups a point) after a warm-up group, its
+    seven counters equal to the same run on ["cuda:0"] * n, frames/s of
+    both, each card's step ms (CUDA events) and in how many groups every
+    card's step span overlaps the others' on the host clock (all must);
+    (c) DELutGPU with its CUDA graphs over the n cards, and on the last
+    card alone with cuda:0 current, array_equal to one card on the
+    published irregular ensemble at 4n points (400 iterations); (d) one
+    `torchrun --nproc_per_node n -m lut_ldpc_torch.cli.ber_sim --mesh n` on
+    a temporary INI (the headline codec from a file, 1.5 and 2.5 dB, 2048n
+    frames a point), rank 0's files equal to those of the same CLI run as
+    one process over the cards (runtime aside).  It prints a `cards` JSON
+    line before the `kernels` line, whose rows then carry
+    `cards_launches`, the passes of 25a.  `python3 chip_smoke.py
+    --cards-only` runs phases 1 and 25 alone (with the codecs and
+    libraries phase 25 needs).
 Every main-path decode (phases 4, 8, 11, 13, 14, 17, 18, 19, 21, 22, 23) must have run each
 CN and VN pass on the CN frames, the CN block kernel or the generated VN
 kernels, none on a table-driven witness.  Then a JSON line of per-kernel results
@@ -2362,6 +2387,268 @@ def glue_phase(dev, smi, head_codec, dvb_codec, peg_codec, rows, widths=(8192, 4
         + "; ".join(f"{name[:60]} x{c} {ms:.3f}" for name, c, ms in glue[:8]) + f" on {smi}")
 
 
+def all_counters(res):
+    return {name: getattr(res, name).tolist() for name in
+            ("frames", "data_bits", "uncoded_bits", "frame_errors", "data_bit_errors",
+             "uncoded_bit_errors", "decode_iters")}
+
+
+def card_families(codecs):
+    """Phase 25a: the five decoder families, each (name, make(dev) ->
+    decoder, inputs(dev) -> decoder arguments, the kernels its passes must
+    launch (wrapper names of qc_kernels.LAUNCHES), whether the loop's glue
+    runs)."""
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.decoder import (ArithLUTDecoder, BPDecoder, build_arith_prefix_spec,
+                                        build_arith_spec, make_decoder, make_staged_decoder)
+    from lut_ldpc_torch.ops.pmf import snr2sig
+
+    head, peg, dvb = codecs["headline"], codecs["peg"], codecs["dvbs2"]
+
+    def labels(codec, B, snr):
+        lc, lm = bench.channel_labels(codec, B, snr, seed=25)
+        return lambda dev: (torch.as_tensor(lc, device=dev), torch.as_tensor(lm, device=dev))
+
+    rng = np.random.default_rng(25)
+    sig = float(snr2sig(0.5, 2.0))
+    llr = (2.0 * (1.0 + sig * rng.standard_normal((1024, head.nvar))) / sig**2).astype(
+        np.float32)
+    head16 = build_arith_prefix_spec(head, dtype=np.int16)
+    dvb32 = build_arith_spec(dvb, dtype=np.float32)
+    return [
+        ("headline HybridLUTDecoder B=8192 1.5 dB", lambda dev: make_staged_decoder(head, dev),
+         labels(head, bench.BATCH, 1.5), ("cn_qc_pass", "vn_qc_pass"), True),
+        ("PEG N=64800 std loop (MixedArithDecoder) B=256 1.6 dB",
+         lambda dev: make_decoder(peg, dev, early_exit=True), labels(peg, 256, 1.6),
+         ("cn_std_pass", "vn_std_pass"), True),
+        ("headline int16 prefix on the block loop B=2048 2 dB",
+         lambda dev: ArithLUTDecoder(head, dev, spec=head16, loop="blocks"),
+         labels(head, 2048, 2.0), ("cn_block_pass", "vn_block_pass"), True),
+        ("DVB-S2 f32 ArithLUTDecoder B=256 1.6 dB",
+         lambda dev: ArithLUTDecoder(dvb, dev, spec=dvb32), labels(dvb, 256, 1.6),
+         ("cn_qc_pass", "vn_qc_pass"), True),
+        ("BPDecoder minsum B=1024 2 dB",
+         lambda dev: BPDecoder(head.graph, dev, 50, algorithm="minsum"),
+         lambda dev: (torch.as_tensor(llr, device=dev),), (), False),
+    ]
+
+
+def cards_phase(smi, codecs, results):
+    """Phase 25: one process over every card up to four (lut_ldpc_torch
+    parallel.run_by_device, qc_kernels.launch_on); codecs: "headline",
+    "peg" and "dvbs2".  Returns the cards line, or None on a host with one
+    card."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import bench
+    from lut_ldpc_torch.cli import ber_sim as cli
+    from lut_ldpc_torch.core.ensemble import LDPCEnsemble
+    from lut_ldpc_torch.decoder import HybridLUTDecoder
+    from lut_ldpc_torch.decoder import loop_glue as lg
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+    from lut_ldpc_torch.design import DELutGPU
+    from lut_ldpc_torch.parallel import dp_mesh
+    from lut_ldpc_torch.sim import BERSim, BERSimConfig, BERSimResults, LDPCConfig, SimConfig
+    from lut_ldpc_torch.cards_sweep import SpanSim, span_summary
+
+    have = torch.cuda.device_count()
+    n = min(have, 4)
+    if n < 2:
+        log(f"# phase 25 (cards): not run: it needs two cards, this host has {have}")
+        return None
+    cards = [torch.device("cuda", k) for k in range(n)]
+    secs, line = {}, {"cards": n, "card": smi}
+    torch.cuda.set_device(0)
+
+    # 25a: with cuda:0 current, each family on cuda:k against cuda:0
+    t0 = time.perf_counter()
+    launched = dict.fromkeys(REPLACES, 0)
+    for name, make, inputs, kernels, glue in card_families(codecs):
+        want = [o.cpu() for o in make(cards[0])(*inputs(cards[0]))]
+        for dev in cards[1:]:
+            dec, args = make(dev), inputs(dev)
+            torch.cuda.synchronize(dev)
+            qk.reset_launches()
+            lg.reset_launches()
+            got = dec(*args)
+            torch.cuda.synchronize(dev)
+            if torch.cuda.current_device() != 0:
+                raise AssertionError(f"25a: {name} on {dev} changed the current device")
+            if any(o.device != dev for o in got):
+                raise AssertionError(f"25a: {name} on {dev}: outputs on "
+                                     f"{[str(o.device) for o in got]}")
+            same(tuple(o.cpu() for o in got), want, f"25a: {name} on {dev} against cuda:0")
+            for k in kernels:
+                if (qk.LAUNCHES[k] < 1 or qk.CLASS_LAUNCHES[k] < qk.LAUNCHES[k]
+                        or qk.WITNESS_LAUNCHES[k]):
+                    raise AssertionError(f"25a: {name} on {dev}: {k} passes "
+                                         f"{qk.LAUNCHES[k]}, class launches "
+                                         f"{qk.CLASS_LAUNCHES[k]}, witness "
+                                         f"{qk.WITNESS_LAUNCHES[k]}")
+                launched[k] += qk.LAUNCHES[k]
+            if glue and min(lg.LAUNCHES.values()) < 1:
+                raise AssertionError(f"25a: {name} on {dev}: glue launches {lg.LAUNCHES}")
+            inner = getattr(dec, "inner", dec)
+            if isinstance(inner, HybridLUTDecoder) and inner.tail_runs < 1:
+                raise AssertionError(f"25a: {name} on {dev}: the table tail did not run")
+            del dec, args, got
+        log(f"# phase 25a: {name}: bits, ok and iters on cuda:1..{n - 1} equal to cuda:0's "
+            f"with cuda:0 current; passes on cuda:{n - 1} "
+            f"{ {k: c for k, c in qk.LAUNCHES.items() if c} }, glue {dict(lg.LAUNCHES)}")
+    secs["a"] = time.perf_counter() - t0
+    results_launches = {k: c for k, c in launched.items() if c}
+    for k, c in launched.items():
+        results[k]["cards_launches"] = c
+    torch.cuda.empty_cache()
+
+    # 25b: BERSim over dp_mesh(n, "cuda") in one process against the same
+    # run on ["cuda:0"] * n, the headline configuration
+    t0 = time.perf_counter()
+    head, B, groups = codecs["headline"], bench.BATCH, 3
+    cfg = lambda frames: BERSimConfig(
+        sim=SimConfig(SNRdB=np.array([1.5, 2.5]), Nframes=frames, Nfers=10**9, ber_min=0.0,
+                      fer_min=0.0, batch_size=B), ldpc=LDPCConfig(zero_codeword=True))
+    mesh = dp_mesh(n, "cuda")
+    many = SpanSim(cfg(n * B), head.graph, codec=head, mesh=mesh)
+    one = BERSim(cfg(n * B), head.graph, codec=head, mesh=dp_mesh(devices=["cuda:0"] * n))
+    for sim in (many, one):
+        if not all(isinstance(d, HybridLUTDecoder) and d.S == 32 for d in sim.decoders.values()):
+            raise AssertionError("25b: expected the headline HybridLUTDecoder on every card")
+        sim.run(seed=9, verbose=False)  # warm-up: one group a point
+        sim.config.sim.Nframes = groups * n * B
+    runs = {}
+    many.spans = []
+    for what, sim in (("cards", many), ("one_card", one)):
+        for dev in cards:
+            torch.cuda.synchronize(dev)
+        res = sim.run(seed=0, verbose=False)
+        runs[what] = (all_counters(res), res.runtime)
+    if runs["cards"][0] != runs["one_card"][0]:
+        raise AssertionError(f"25b: {n} cards {runs['cards'][0]} against one card "
+                             f"{runs['one_card'][0]}")
+    frames, spans = sum(runs["cards"][0]["frames"]), span_summary(many.spans, n)
+    line.update(frames=frames, frames_per_s=frames / runs["cards"][1],
+                one_card_frames_per_s=frames / runs["one_card"][1],
+                run_s=runs["cards"][1], one_card_run_s=runs["one_card"][1], **spans,
+                counters=runs["cards"][0])
+    secs["b"] = time.perf_counter() - t0
+    if len(many.spans) != 2 * groups * n or spans["group_sizes"] != [n]:
+        raise AssertionError(f"25b: {len(many.spans)} slot steps, groups of "
+                             f"{spans['group_sizes']}")
+    if spans["overlapping"][0] < spans["overlapping"][1]:
+        raise AssertionError(f"25b: every card's step spans overlap in "
+                             f"{spans['overlapping']} groups only")
+    log(f"# phase 25b: BERSim over dp_mesh({n}, 'cuda') in one process, B={B} a card, "
+        f"1.5 and 2.5 dB, {groups} groups a point: counters equal the run on "
+        f"['cuda:0'] * {n}; {line['frames_per_s']:.1f} frames/s ({runs['cards'][1]:.3f} s) "
+        f"against {line['one_card_frames_per_s']:.1f} on one card "
+        f"({runs['one_card'][1]:.3f} s); step ms a card (1.5 / 2.5 dB) "
+        + "; ".join(f"{d} {v[0]:.2f} / {v[1]:.2f}" for d, v in spans["step_ms"].items())
+        + f"; every card's step spans overlap in {spans['overlapping'][0]} of "
+        f"{spans['overlapping'][1]} groups, concurrency (step seconds over the group's "
+        f"span) {spans['concurrency'][0]:.2f}-{spans['concurrency'][2]:.2f}; "
+        f"{secs['b']:.1f}s on {smi}")
+    del many, one
+    torch.cuda.empty_cache()
+
+    # 25c: DELutGPU, CUDA graphs on, over the cards against one card
+    t0 = time.perf_counter()
+    irr = LDPCEnsemble.read("ensembles/rate0.50_dv02-17_dc08-09_lut_q4.ens")
+    kw = dict(maxiter_de=400, Pe_max=1e-6, max_ni_de_iters=30, strategy="joint_root",
+              tree_mode="auto_bin_balanced")
+    grid = np.linspace(0.90, 0.96, 4 * n)
+    want = DELutGPU(irr, 16, 16, device=cards[0], **kw).evolve_batch(grid)
+    meshed = DELutGPU(irr, 16, 16, mesh=mesh, **kw)
+    got = meshed.evolve_batch(grid)
+    subs = [meshed._on[d].graph for d in cards]
+    last = DELutGPU(irr, 16, 16, device=cards[-1], **kw)  # from this thread, cuda:0 current
+    alone = last.evolve_batch(grid)
+    for what, x in ((f"over {n} cards", got), (f"on {cards[-1]} alone", alone)):
+        if not all(np.array_equal(u, v) for u, v in zip(x, want)):
+            raise AssertionError(f"25c: DELutGPU {what} {x} against cuda:0 {want}")
+    if not (all(subs) and last.graph):
+        raise AssertionError(f"25c: CUDA graphs off: {subs}, {last.graph}")
+    secs["c"] = time.perf_counter() - t0
+    log(f"# phase 25c: DELutGPU irregular q4 joint_root, 400 iterations, graphs on: "
+        f"evolve_batch at {len(grid)} points over {n} cards (DE iterations "
+        f"{meshed.stats.iterations}) and on {cards[-1]} alone with cuda:0 current "
+        f"array_equal to cuda:0 (decisions {want[0].astype(int).tolist()}); "
+        f"{secs['c']:.1f}s")
+
+    # 25d: the ber_sim CLI under torchrun, one rank a card, against one
+    # process over the cards
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    codec_path = os.path.join(tmp, "headline.npz")
+    head.save(codec_path)
+    ini = os.path.join(tmp, "cards.ini")
+    with open(ini, "w") as f:
+        f.write(f"[Sim]\nSNRdB = 1.5 2.5\nNframes = {4 * 1024 * n // 2}\nNfers = 1000000000\n"
+                f"ber_min = 0\nfer_min = 0\nresults_prefix = RES\nresults_dir = results\n"
+                f"batch_size = 1024\ncodec_filename = {codec_path}\n\n[LDPC]\n"
+                f"parity_filename = none\nzero_codeword = 1\nparity_check_iter = 1\n\n"
+                f"[LUT]\nmax_iter = 50\ndesign_thr = 0.85\nqbits_channel = 4\n"
+                f"qbits_message_uniform = 4\nmin_lut = 1\n")
+    solo, ranks = os.path.join(tmp, "one_process"), os.path.join(tmp, "torchrun")
+    if cli.main(["-p", ini, "-b", solo, "--mesh", str(n)]) != 0:
+        raise AssertionError("25d: the one-process run failed")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", f"--nproc_per_node={n}",
+         "--master_addr=localhost", f"--master_port={port}", "-m",
+         "lut_ldpc_torch.cli.ber_sim", "-p", ini, "-b", ranks, "--mesh", str(n)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"25d: torchrun exited with {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    files = {}
+    for root in (solo, ranks):
+        found = {}
+        for d, _, names in os.walk(root):
+            for nm in names:
+                found[os.path.relpath(os.path.join(d, nm), root)] = os.path.join(d, nm)
+        files[root] = found
+    if sorted(files[solo]) != sorted(files[ranks]) or not files[solo]:
+        raise AssertionError(f"25d: files {sorted(files[ranks])} against "
+                             f"{sorted(files[solo])}")
+    for rel, a in files[solo].items():
+        b = files[ranks][rel]
+        if rel.endswith(".npz"):
+            with np.load(a) as x, np.load(b) as y:
+                diff = [k for k in x.files if k != "runtime" and not np.array_equal(x[k], y[k])]
+        elif rel.endswith(".json"):
+            with open(a) as fa, open(b) as fb:
+                x, y = json.load(fa), json.load(fb)
+            diff = [k for k in x if k not in ("runtime_s", "sec_per_frame") and x[k] != y.get(k)]
+        elif rel.endswith(".it"):
+            x, y = BERSimResults.load_itfile(a), BERSimResults.load_itfile(b)
+            diff = [k for k, v in all_counters(x).items() if v != all_counters(y)[k]]
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                diff = [] if fa.read() == fb.read() else ["bytes"]
+        if diff:
+            raise AssertionError(f"25d: {rel} differs from the one-process run in {diff}")
+    secs["d"] = time.perf_counter() - t0
+    log(f"# phase 25d: torchrun --nproc_per_node {n} -m lut_ldpc_torch.cli.ber_sim --mesh {n}: "
+        f"rank 0's {len(files[ranks])} files equal the one-process run's (runtime aside); "
+        f"{secs['d']:.1f}s")
+    shutil.rmtree(tmp)
+    line.update(seconds=secs, launches=results_launches)
+    return line
+
+
 def check_worker_golden(what, golden, frame0, max_iters):
     import numpy as np
 
@@ -2373,7 +2660,43 @@ def check_worker_golden(what, golden, frame0, max_iters):
         f"worker process)")
 
 
-def main():
+def cards_only(smi):
+    """`--cards-only`: phase 2's three codecs of phase 25 and their
+    libraries built side by side, then phase 25 alone."""
+    import numpy as np
+    import torch
+
+    from lut_ldpc_torch import bench, bench_n64800 as b64
+    from lut_ldpc_torch.decoder import build_arith_prefix_spec, build_arith_spec
+    from lut_ldpc_torch.decoder import qc_kernels as qk
+
+    os.environ.setdefault("LUT_DECODE_MEM_BUDGET", str(b64.MEM_BUDGET))
+    builds, libs = qk.start_builds(force=True), {}
+    codecs = {"headline": bench.build_codec(), "peg": b64.build_codec("peg"),
+              "dvbs2": b64.build_codec("dvbs2")}
+    start_vn_builds({"headline": (codecs["headline"], [
+        (build_arith_prefix_spec, dt, ("auto", "blocks")) for dt in (np.int16, np.float32)]),
+        "PEG": (codecs["peg"], [(build_arith_prefix_spec, np.int16, ("auto",)),
+                                (build_arith_spec, np.float32, ("auto",))]),
+        "DVB-S2": (codecs["dvbs2"], [(build_arith_spec, np.float32, ("auto",))])}, libs)
+    for b in builds.values():
+        b.wait()
+    for _, lib, _ in libs.values():
+        lib.handle()
+    log(f"# phase 2: three codecs designed, {len(builds) + len(libs)} libraries built")
+    t0 = time.perf_counter()
+    line = cards_phase(smi, codecs, {n: {} for n in REPLACES})
+    log(f"# phase 25 took {time.perf_counter() - t0:.1f}s")
+    if line is not None:
+        print(json.dumps({"cards": line}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=()):
     import torch
 
     if not torch.cuda.is_available():
@@ -2384,6 +2707,10 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f"# phase 1: card {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+    if list(argv) == ["--cards-only"]:
+        return cards_only(smi)
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {list(argv)}; only --cards-only")
 
     import multiprocessing
     import os
@@ -2523,8 +2850,15 @@ def main():
     glue_rows = {}
     glue_phase(dev, smi, head_codec, dvb_codec, codec, glue_rows)
     log(f"# phase 24 took {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cards_line = cards_phase(smi, {"headline": head_codec, "peg": codec, "dvbs2": dvb_codec},
+                             results)
+    log(f"# phase 25 took {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"mesh": mesh_line}))
+    if cards_line is not None:
+        print(json.dumps({"cards": cards_line}))
 
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=SOURCES[n], replaces=REPLACES[n],
@@ -2542,4 +2876,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

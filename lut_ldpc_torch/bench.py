@@ -8,7 +8,7 @@ decoded by ``make_staged_decoder``.  Metric: decoded information
 throughput, Mbit/s of systematic bits through the full decode, timed with
 ``torch.cuda.synchronize()`` around the runs.
 
-    python -m lut_ldpc_torch.bench
+    python -m lut_ldpc_torch.bench [--device cuda:N]
 
 Prints one JSON line {"metric", "value", "unit", "device"}; refuses to run
 without a CUDA device.
@@ -57,12 +57,15 @@ def channel_labels(codec, B: int, snr_db: float = 2.0, seed: int = 0):
 
 def time_decode(dec, lc, lm, reps: int, warmup: int = 2, device=None):
     """Mean seconds per decode call and the last output; synchronized with
-    the card unless `device` is the CPU."""
+    the card of `device` (default: that of the labels lc, else the
+    current one) unless it is the CPU."""
     import torch
 
+    dev = device if device is not None else getattr(lc, "device", None)
+
     def sync():
-        if device is None or device.type == "cuda":
-            torch.cuda.synchronize()
+        if dev is None or dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     for _ in range(warmup):
         out = dec(lc, lm)
@@ -74,14 +77,20 @@ def time_decode(dec, lc, lm, reps: int, warmup: int = 2, device=None):
     return (time.perf_counter() - t0) / reps, out
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", help="the card to time (cuda, cuda:N)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("lut_ldpc_torch.bench needs a CUDA device")
     from .decoder import make_staged_decoder
+    from .device import resolve_device
 
-    dev = torch.device("cuda")
+    dev = resolve_device(args.device)
     t0 = time.perf_counter()
     codec = build_codec()
     print(f"# codec designed in {time.perf_counter() - t0:.1f}s "
@@ -91,7 +100,7 @@ def main():
     lc, lm = channel_labels(codec, BATCH)
     lc = torch.as_tensor(lc, device=dev)
     lm = torch.as_tensor(lm, device=dev)
-    dt, out = time_decode(dec, lc, lm, REPS)
+    dt, out = time_decode(dec, lc, lm, REPS, device=dev)
     iters_mean = float(out[2].float().mean())
     info_bits = BATCH * codec.k
     mbits = info_bits / dt / 1e6
@@ -100,7 +109,7 @@ def main():
           f"{dt * 1e3:.2f} ms -> {mbits:.2f} Mbit/s info", file=sys.stderr)
     print(json.dumps({"metric": "lut_decode_info_throughput",
                       "value": mbits, "unit": "Mbit/s",
-                      "device": torch.cuda.get_device_name(0)}))
+                      "device": torch.cuda.get_device_name(dev)}))
 
 
 if __name__ == "__main__":

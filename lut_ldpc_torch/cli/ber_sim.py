@@ -7,9 +7,12 @@ selects the decoder family.  --device names the device (default cuda; a
 CPU run is asked for with --device cpu, and CUDA asked for where there is
 none raises).  --mesh N runs data-parallel over N slots of that device type
 (N CPU slots for --device cpu, cards cuda:0 .. cuda:N-1 for cuda, which
-raises where fewer exist); under torchrun, which sets RANK, WORLD_SIZE and
-MASTER_ADDR, the processes first join a gloo group and N counts the slots
-of all of them:
+raises where fewer exist; one process drives its cards at once, a host
+thread each); under torchrun, which sets RANK, WORLD_SIZE and MASTER_ADDR,
+the processes first join a gloo group, N counts the slots of all of them,
+and each rank makes its first card the current device before it builds
+anything.  Rank 0 writes the same files as a one-card run: the seed decides
+every batch:
 
     python -m lut_ldpc_torch.cli.ber_sim -p params/ber.ini.bp.example -s 0
     torchrun --nproc_per_node 4 -m lut_ldpc_torch.cli.ber_sim -p <ini> --mesh 4
@@ -53,12 +56,18 @@ def main(argv=None) -> int:
                     help="data-parallel over N slots of --device's type (0 = one device)")
     args = ap.parse_args(argv)
 
+    import torch
+
+    from ..device import resolve_device
     from ..parallel import dp_mesh, multihost_init
     from ..sim import parse_ini, run_from_config
 
     multihost_init()
     cfg = parse_ini(args.params)
     mesh = dp_mesh(args.mesh, args.device) if args.mesh else None
+    first = mesh.devices[0] if mesh is not None else resolve_device(args.device)
+    if first.type == "cuda":
+        torch.cuda.set_device(first)  # torch's own allocations and events go there
     results, sim = run_from_config(cfg, None if mesh else args.device,
                                    codes_root=args.basedir, seed=args.seed, mesh=mesh)
     if mesh is not None and mesh.rank != 0:

@@ -12,7 +12,7 @@ replacing the reference's one-std::thread-per-point fan-out.  With
 --device (default cuda; CUDA asked for where there is none raises) before
 the f64 host bisection finishes inside their bracket; --mesh N shards the
 LUT explorer's grids over N slots of --device's type (N cards for cuda,
-which raises where fewer exist).
+which raises where fewer exist, all at once, a host thread each).
 
     python -m lut_ldpc_torch.cli.de_sim -p params/de.ini.example
 """
@@ -346,6 +346,10 @@ def main(argv=None) -> int:
     from ..device import resolve_device
 
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.set_device(device)  # torch's own allocations and events go there
 
     cp = configparser.ConfigParser(inline_comment_prefixes=(";", "#"))
     cp.optionxform = str

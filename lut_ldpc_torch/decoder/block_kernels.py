@@ -112,15 +112,17 @@ def cn_block_pass(m3: torch.Tensor, n_real: int, out=None):
     a new one."""
     d, n_pad, B = _check_block(m3, n_real)
     if m3.device.type == "cpu":
-        qk.PLAIN_RUNS["cn_block_pass"] += 1
+        qk.count(qk.PLAIN_RUNS, "cn_block_pass")
         return cn_block_pass_ref(m3, n_real, out)
     qk._check_grid(n_pad, B)
     out = _out(m3, out)
     synd = torch.ones(B, dtype=torch.bool, device=m3.device)
     if n_real and B:
-        err = qk._load().lut_cn_block_pass(
-            int(m3.dtype == torch.float32), m3.data_ptr(), out.data_ptr(),
-            synd.data_ptr(), d, n_pad, n_real, B, qk._stream(m3.device))
+        lib = qk._load()
+        with qk.launch_on(m3.device) as stream:
+            err = lib.lut_cn_block_pass(
+                int(m3.dtype == torch.float32), m3.data_ptr(), out.data_ptr(),
+                synd.data_ptr(), d, n_pad, n_real, B, stream)
         qk._class_launched(err, "cn_block_pass")
         qk._launched("cn_block_pass", m3.dtype)
     return out, synd
@@ -285,7 +287,7 @@ def run_vn_block(m3: torch.Tensor, cha: torch.Tensor, prog: VNBlockProgram,
     d, n_pad, B = _check_vn(m3, cha, prog, it, n_real)
     dev = m3.device
     if dev.type == "cpu":
-        qk.PLAIN_RUNS["vn_block_pass"] += 1
+        qk.count(qk.PLAIN_RUNS, "vn_block_pass")
         return run_vn_block_ref(m3, cha, prog, it, n_real)
     qk._check_grid(n_pad, B)
     out = torch.empty_like(m3)
@@ -294,21 +296,25 @@ def run_vn_block(m3: torch.Tensor, cha: torch.Tensor, prog: VNBlockProgram,
     if not (n_real and B):
         return out, bits, unan
     if generic:
-        err = qk._load().lut_vn_block_pass(
-            int(m3.dtype == torch.float32), m3.data_ptr(), cha.data_ptr(),
-            out.data_ptr(), bits.data_ptr(), unan.data_ptr(),
-            prog.op_info.data_ptr(), prog.opnds.data_ptr(),
-            prog.loo_dev.data_ptr(), prog.prm.data_ptr(), int(it),
-            prog.prm.shape[1], d, len(prog.ops), int(prog.use_tot), n_pad,
-            n_real, B, qk._stream(dev))
+        lib = qk._load()
+        with qk.launch_on(dev) as stream:
+            err = lib.lut_vn_block_pass(
+                int(m3.dtype == torch.float32), m3.data_ptr(), cha.data_ptr(),
+                out.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+                prog.op_info.data_ptr(), prog.opnds.data_ptr(),
+                prog.loo_dev.data_ptr(), prog.prm.data_ptr(), int(it),
+                prog.prm.shape[1], d, len(prog.ops), int(prog.use_tot), n_pad,
+                n_real, B, stream)
         qk._raise_on(err, "vn_block_pass")
-        qk.WITNESS_LAUNCHES["vn_block_pass"] += 1
+        qk.count(qk.WITNESS_LAUNCHES, "vn_block_pass")
     else:
-        lib, c = vn_codegen.block_class(prog, m3.dtype)
-        err = lib.handle().lut_vn_block_class(
-            c, m3.data_ptr(), None, cha.data_ptr(), out.data_ptr(),
-            bits.data_ptr(), unan.data_ptr(), 0, n_pad, n_real, 0, B,
-            qk._aligned(m3, cha, out, bits), _prm_row(prog, it), qk._stream(dev))
+        unit, c = vn_codegen.block_class(prog, m3.dtype)
+        lib = unit.handle()
+        with qk.launch_on(dev) as stream:
+            err = lib.lut_vn_block_class(
+                c, m3.data_ptr(), None, cha.data_ptr(), out.data_ptr(),
+                bits.data_ptr(), unan.data_ptr(), 0, n_pad, n_real, 0, B,
+                qk._aligned(m3, cha, out, bits), _prm_row(prog, it), stream)
         qk._class_launched(err, "vn_block_pass")
     qk._launched("vn_block_pass", m3.dtype)
     return out, bits, unan
@@ -382,19 +388,21 @@ def vn_blocks_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int, progs,
     B = _check_blocks(m_cn, cha, it, progs, tables)
     dev = m_cn.device
     if dev.type == "cpu":
-        qk.PLAIN_RUNS["vn_block_pass"] += 1
+        qk.count(qk.PLAIN_RUNS, "vn_block_pass")
         return vn_blocks_pass_ref(m_cn, cha, it, progs, tables)
     qk._check_grid(tables.nvar_pad, B)
     m_vn = torch.empty((tables.rows_vn, B), dtype=m_cn.dtype, device=dev)
     bits = torch.empty((tables.nvar_pad, B), dtype=torch.int8, device=dev)
     unan = torch.ones(B, dtype=torch.bool, device=dev)
-    fn = vn_codegen.block_library(progs, m_cn.dtype).handle().lut_vn_block_class
-    aligned, stream = qk._aligned(m_cn, cha, m_vn, bits), qk._stream(dev)
-    for c, (blk, prog) in enumerate(zip(tables.vn_blocks, progs)):
-        err = fn(c, m_cn.data_ptr(), tables.perm_c2v.data_ptr(), cha.data_ptr(),
-                 m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(), blk.node_start,
-                 blk.n_pad, blk.num_nodes, blk.edge_start, B, aligned,
-                 _prm_row(prog, it), stream)
-        qk._class_launched(err, "vn_block_pass")
+    lib = vn_codegen.block_library(progs, m_cn.dtype).handle()
+    aligned = qk._aligned(m_cn, cha, m_vn, bits)
+    with qk.launch_on(dev) as stream:
+        for c, (blk, prog) in enumerate(zip(tables.vn_blocks, progs)):
+            err = lib.lut_vn_block_class(
+                c, m_cn.data_ptr(), tables.perm_c2v.data_ptr(), cha.data_ptr(),
+                m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(), blk.node_start,
+                blk.n_pad, blk.num_nodes, blk.edge_start, B, aligned,
+                _prm_row(prog, it), stream)
+            qk._class_launched(err, "vn_block_pass")
     qk._launched("vn_block_pass", m_cn.dtype)
     return m_vn, bits, unan

@@ -17,8 +17,10 @@ values.
 CUDA tensors launch the kernels of ``csrc/loop_glue.cu`` (a unit of the
 kernel library, ``qc_kernels.UNITS``); CPU tensors run the plain versions
 ``*_ref`` beside them, which compute the same values.  A CUDA tensor never
-falls back: the kernel launches or the wrapper raises.  ``LAUNCHES`` counts
-each wrapper's launches.
+falls back: the kernel launches or the wrapper raises.  Each launch goes
+through ``qc_kernels.launch_on`` (the card of the tensors, its current
+stream).  ``LAUNCHES`` counts each wrapper's launches, under the lock of
+``qc_kernels``' counts.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ TAB_COLS = 5  # init table: variable, edge row of slot 0, n_pad, degree, phantom
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with qk._count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _lib():
@@ -48,7 +51,7 @@ def _launched(err: int, name: str) -> None:
     if err == qk.NOTHING_TO_LAUNCH:
         return
     qk._raise_on(err, name)
-    LAUNCHES[name] += 1
+    qk.count(LAUNCHES, name)
 
 
 def _flags(name, t, n):
@@ -60,19 +63,24 @@ def _flags(name, t, n):
 # ---------------------------------------------------------------------------
 class LiveCount:
     """The live-frame count of one decoder's loop: on the card an int on the
-    device, a pinned host int and an event, made once; ``read`` waits on
-    the event (the copy queued behind the loop-state kernel), not on the
-    stream.  A plain version sets ``value`` instead."""
+    device, a pinned host int and an event, made once with the decoder's
+    card current; ``read`` waits on the event (the copy queued behind the
+    loop-state kernel on that card's current stream), not on the stream,
+    and lets other threads run meanwhile.  The copy and the event are
+    queued and read from whichever thread runs the decoder.  A plain
+    version sets ``value`` instead."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.value = None
         if device.type == "cuda":
-            self.dev = torch.zeros(1, dtype=torch.int32, device=device)
-            self.host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
-            self.event = torch.cuda.Event()
+            with torch.cuda.device(device):
+                self.dev = torch.zeros(1, dtype=torch.int32, device=device)
+                self.host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+                self.event = torch.cuda.Event()
 
     def _queue(self) -> None:
+        # the copy and the event take the device of `dev` and of the stream
         self.value = None
         self.host.copy_(self.dev, non_blocking=True)
         self.event.record(torch.cuda.current_stream(self.device))
@@ -110,11 +118,12 @@ def loop_state(unan_p: torch.Tensor, synd: torch.Tensor, done: torch.Tensor,
         if live is not None:
             live.value = int((~done).sum())
         return conv
-    conv = torch.empty_like(done)
-    err = _lib().lut_loop_state(
-        unan_p.data_ptr(), synd.data_ptr(), done.data_ptr(), iters.data_ptr(),
-        conv.data_ptr(), None if live is None else live.dev.data_ptr(), int(it),
-        int(it >= 1), B, qk._stream(done.device))
+    conv, lib = torch.empty_like(done), _lib()
+    with qk.launch_on(done.device) as stream:
+        err = lib.lut_loop_state(
+            unan_p.data_ptr(), synd.data_ptr(), done.data_ptr(), iters.data_ptr(),
+            conv.data_ptr(), None if live is None else live.dev.data_ptr(), int(it),
+            int(it >= 1), B, stream)
     _launched(err, "loop_state")
     if live is not None:
         live._queue()
@@ -135,8 +144,10 @@ def latch(conv: torch.Tensor, bits_prev: torch.Tensor, latched: torch.Tensor) ->
     qk._check("latched", latched, torch.int8, bits_prev.shape, conv.device)
     if conv.device.type == "cpu":
         return latch_ref(conv, bits_prev, latched)
-    err = _lib().lut_latch(conv.data_ptr(), bits_prev.data_ptr(), latched.data_ptr(),
-                           bits_prev.shape[0], B, qk._stream(conv.device))
+    lib = _lib()
+    with qk.launch_on(conv.device) as stream:
+        err = lib.lut_latch(conv.data_ptr(), bits_prev.data_ptr(), latched.data_ptr(),
+                            bits_prev.shape[0], B, stream)
     _launched(err, "latch")
 
 
@@ -212,11 +223,13 @@ def init_values(cha: torch.Tensor, msg: torch.Tensor | None, tab: torch.Tensor,
     vcha = torch.empty((G, B), dtype=leaf_cha.dtype, device=dev)
     m_vn = (None if msg is None
             else torch.empty((rows_vn, B), dtype=leaf_cha.dtype, device=dev))
-    err = _lib().lut_init_values(
-        int(leaf_cha.dtype == torch.float32), int(cha.dtype == torch.int64),
-        cha.data_ptr(), None if msg is None else msg.data_ptr(), tab.data_ptr(),
-        leaf_cha.data_ptr(), leaf_cha.shape[0], leaf_msg0.data_ptr(), leaf_msg0.shape[0],
-        vcha.data_ptr(), None if m_vn is None else m_vn.data_ptr(), float(pin), G, nvar, B,
-        qk._stream(dev))
+    lib = _lib()
+    with qk.launch_on(dev) as stream:
+        err = lib.lut_init_values(
+            int(leaf_cha.dtype == torch.float32), int(cha.dtype == torch.int64),
+            cha.data_ptr(), None if msg is None else msg.data_ptr(), tab.data_ptr(),
+            leaf_cha.data_ptr(), leaf_cha.shape[0], leaf_msg0.data_ptr(),
+            leaf_msg0.shape[0], vcha.data_ptr(), None if m_vn is None else m_vn.data_ptr(),
+            float(pin), G, nvar, B, stream)
     _launched(err, "init_values")
     return vcha, m_vn

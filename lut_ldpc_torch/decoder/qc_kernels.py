@@ -29,13 +29,20 @@ to compare with); the std CN witness gathers in torch around its kernel.
 
 The kernel library is four units, compiled with nvcc side by side at first
 use into ``build/torch_kernels/`` (shared libraries with a plain C
-interface, loaded with ctypes, launched on the current stream): the CN
+interface, loaded with ctypes): the CN
 frames of ``cn_frames.cu`` once for int16 and once for float32 messages,
 ``qc_kernels.cu``, the table-driven witnesses and the CN block kernel
 (wrappers in ``block_kernels``), and ``loop_glue.cu``, the value-domain
 loop's state, latch and init kernels (wrappers in ``loop_glue``).  Each
 file is named by a sha256 over the text of its sources and the compiler flags
 (``nvcc.library_name``), so a library on disk is never stale.
+
+Every call of a C entry point of these units and of the generated VN units
+goes through ``launch_on``: the card of the tensors becomes the current
+device for the length of the pass, and the launch goes to that card's
+current stream.  A C entry point launches on the current device, so without
+it a pass on cuda:1 in a thread whose current device is cuda:0 would launch
+on cuda:0 with pointers into cuda:1.
 ``LAUNCHES`` counts each wrapper's calls that launched a kernel (passes);
 ``CLASS_LAUNCHES`` the launches of the per-degree kernels these made, one
 for each call of a per-degree entry point that returned 0 (an entry point
@@ -45,11 +52,13 @@ generated QC and std VN kernels that ran at one frame a thread (a batch
 width or an array start that the vector path does not take).
 ``WITNESS_LAUNCHES`` counts the passes that went through a table-driven
 witness (``generic=True``).  ``PLAIN_RUNS`` counts the wrappers' calls on
-CPU tensors, which run the plain versions.
+CPU tensors, which run the plain versions.  The counts are taken under a
+lock, so passes run from several threads (one a card) count exactly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -65,7 +74,7 @@ __all__ = ["cn_qc_pass", "vn_qc_pass", "cn_qc_pass_ref", "vn_qc_pass_ref",
            "LAUNCHES", "LAUNCHES_BY_DTYPE", "CLASS_LAUNCHES", "ONE_FRAME_LAUNCHES",
            "WITNESS_LAUNCHES", "PLAIN_RUNS",
            "NOTHING_TO_LAUNCH",
-           "reset_launches", "UNITS", "KERNEL_SOURCE", "CN_SOURCE"]
+           "reset_launches", "launch_on", "UNITS", "KERNEL_SOURCE", "CN_SOURCE"]
 
 KERNEL_SOURCE = "qc_kernels.cu"  # the CN block kernel and the table-driven witnesses
 CN_SOURCE = "cn_frames.cuh"      # the CN frames, compiled through cn_frames.cu
@@ -106,18 +115,27 @@ PLAIN_RUNS = dict.fromkeys(LAUNCHES, 0)
 _lock = threading.Lock()
 _builds: dict = {}  # unit -> nvcc.Build
 _libs: dict = {}    # unit -> loaded library
+_count_lock = threading.Lock()  # every launch count of this module and loop_glue
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, ONE_FRAME_LAUNCHES,
-                   WITNESS_LAUNCHES, PLAIN_RUNS):
-        for k in counts:
-            counts[k] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, LAUNCHES_BY_DTYPE, CLASS_LAUNCHES, ONE_FRAME_LAUNCHES,
+                       WITNESS_LAUNCHES, PLAIN_RUNS):
+            for k in counts:
+                counts[k] = 0
+
+
+def count(counts: dict, key, n: int = 1) -> None:
+    """counts[key] += n under the counts' lock."""
+    with _count_lock:
+        counts[key] += n
 
 
 def _launched(name: str, dtype: torch.dtype) -> None:
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_DTYPE[name, str(dtype).removeprefix("torch.")] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_DTYPE[name, str(dtype).removeprefix("torch.")] += 1
 
 
 def unit_path(unit: str, csrc: str | None = None) -> str:
@@ -241,8 +259,15 @@ def _check_grid(nodes, B):
         raise ValueError("grid too large for one launch")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+@contextlib.contextmanager
+def launch_on(device: torch.device):
+    """The one way to a C entry point: `device`, the card of the pass's
+    tensors, is the current device inside the block (``torch.cuda.device``,
+    restored on leaving it), and the block is given the handle of that
+    card's current stream to launch on.  Taken once a pass around all of
+    its launches."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -258,8 +283,9 @@ def _class_launched(err: int, name: str, one_frame: bool = False) -> None:
     if err == NOTHING_TO_LAUNCH:
         return
     _raise_on(err, name)
-    CLASS_LAUNCHES[name] += 1
-    ONE_FRAME_LAUNCHES[name] += one_frame
+    with _count_lock:
+        CLASS_LAUNCHES[name] += 1
+        ONE_FRAME_LAUNCHES[name] += one_frame
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +341,7 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
     dev = m_vn.device
     _check_msgs(m_vn, tables.rows_vn, tables.cn_src.device)
     if dev.type == "cpu":
-        PLAIN_RUNS["cn_qc_pass"] += 1
+        count(PLAIN_RUNS, "cn_qc_pass")
         return cn_qc_pass_ref(m_vn, tables)
     B = m_vn.shape[1]
     _check_cn_degree(tables.max_dc, generic)
@@ -323,24 +349,28 @@ def cn_qc_pass(m_vn: torch.Tensor, tables: QCTables, generic: bool = False):
     _check_grid(R * tables.Z, B)
     m_cn = torch.empty((tables.rows_cn, B), dtype=m_vn.dtype, device=dev)
     synd = torch.ones(B, dtype=torch.bool, device=dev)
-    is_f32, stream = int(m_vn.dtype == torch.float32), _stream(dev)
+    is_f32 = int(m_vn.dtype == torch.float32)
     if generic:
-        err = _load().lut_cn_qc_pass(
-            is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
-            tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
-            tables.cn_dst.data_ptr(), tables.cn_deg.data_ptr(), R, tables.Z,
-            tables.max_dc, B, stream)
-        _raise_on(err, "cn_qc_pass")
-        WITNESS_LAUNCHES["cn_qc_pass"] += 1
-    else:
-        lib, aligned = _load_cn(is_f32), _aligned(m_vn, m_cn)
-        for lo, hi, d in tables.cn_runs:
-            err = lib.lut_cn_qc_frames(
+        lib = _load()
+        with launch_on(dev) as stream:
+            err = lib.lut_cn_qc_pass(
                 is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
                 tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
-                tables.cn_dst.data_ptr(), lo, hi - lo, tables.Z, tables.max_dc, d, B,
-                aligned, stream)
-            _class_launched(err, "cn_qc_pass", lib.lut_cn_vec(is_f32, d, B, aligned) == 1)
+                tables.cn_dst.data_ptr(), tables.cn_deg.data_ptr(), R, tables.Z,
+                tables.max_dc, B, stream)
+        _raise_on(err, "cn_qc_pass")
+        count(WITNESS_LAUNCHES, "cn_qc_pass")
+    else:
+        lib, aligned = _load_cn(is_f32), _aligned(m_vn, m_cn)
+        with launch_on(dev) as stream:
+            for lo, hi, d in tables.cn_runs:
+                err = lib.lut_cn_qc_frames(
+                    is_f32, m_vn.data_ptr(), m_cn.data_ptr(), synd.data_ptr(),
+                    tables.cn_src.data_ptr(), tables.cn_shift.data_ptr(),
+                    tables.cn_dst.data_ptr(), lo, hi - lo, tables.Z, tables.max_dc, d, B,
+                    aligned, stream)
+                _class_launched(err, "cn_qc_pass",
+                                lib.lut_cn_vec(is_f32, d, B, aligned) == 1)
     _launched("cn_qc_pass", m_vn.dtype)
     return m_cn, synd
 
@@ -461,7 +491,7 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
     if not 0 <= it < params.num_iters:
         raise IndexError(f"iteration {it} outside the spec's {params.num_iters}")
     if dev.type == "cpu":
-        PLAIN_RUNS["vn_qc_pass"] += 1
+        count(PLAIN_RUNS, "vn_qc_pass")
         return vn_qc_pass_ref(m_cn, cha, it, params, tables)
     R = tables.vn_src.shape[0]
     _check_grid(R * tables.Z, B)
@@ -470,29 +500,31 @@ def vn_qc_pass(m_cn: torch.Tensor, cha: torch.Tensor, it: int,
     unan = torch.ones(B, dtype=torch.bool, device=dev)
     if generic:
         _check_vn_limits(params, tables.max_dv, dev)
-        err = _load().lut_vn_qc_pass(
-            int(m_cn.dtype == torch.float32), m_cn.data_ptr(), cha.data_ptr(),
-            m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
-            tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
-            tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(),
-            tables.vn_cls.data_ptr(), params.cls_deg.data_ptr(),
-            params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
-            params.op_info.data_ptr(), params.opnds.data_ptr(),
-            params.prm.data_ptr(), int(it), params.prm.shape[1], R, tables.Z,
-            tables.max_dv, B, _stream(dev))
+        lib = _load()
+        with launch_on(dev) as stream:
+            err = lib.lut_vn_qc_pass(
+                int(m_cn.dtype == torch.float32), m_cn.data_ptr(), cha.data_ptr(),
+                m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+                tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
+                tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(),
+                tables.vn_cls.data_ptr(), params.cls_deg.data_ptr(),
+                params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
+                params.op_info.data_ptr(), params.opnds.data_ptr(),
+                params.prm.data_ptr(), int(it), params.prm.shape[1], R, tables.Z,
+                tables.max_dv, B, stream)
         _raise_on(err, "vn_qc_pass")
-        WITNESS_LAUNCHES["vn_qc_pass"] += 1
+        count(WITNESS_LAUNCHES, "vn_qc_pass")
     else:
         lib = vn_codegen.library(params, m_cn.dtype, "qc").handle()
-        aligned = _aligned(m_cn, cha, m_vn, bits)
-        row, stream = _prm_row(params, it), _stream(dev)
-        for lo, hi, ci in tables.vn_runs:
-            err = lib.lut_vn_qc_class(
-                ci, m_cn.data_ptr(), cha.data_ptr(), m_vn.data_ptr(), bits.data_ptr(),
-                unan.data_ptr(), tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
-                tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(), lo, hi - lo, tables.Z,
-                tables.max_dv, B, aligned, row, stream)
-            _class_launched(err, "vn_qc_pass", lib.lut_vn_vec(ci, B, aligned) == 1)
+        aligned, row = _aligned(m_cn, cha, m_vn, bits), _prm_row(params, it)
+        with launch_on(dev) as stream:
+            for lo, hi, ci in tables.vn_runs:
+                err = lib.lut_vn_qc_class(
+                    ci, m_cn.data_ptr(), cha.data_ptr(), m_vn.data_ptr(), bits.data_ptr(),
+                    unan.data_ptr(), tables.vn_src.data_ptr(), tables.vn_shift.data_ptr(),
+                    tables.vn_dst.data_ptr(), tables.vn_node.data_ptr(), lo, hi - lo,
+                    tables.Z, tables.max_dv, B, aligned, row, stream)
+                _class_launched(err, "vn_qc_pass", lib.lut_vn_vec(ci, B, aligned) == 1)
     _launched("vn_qc_pass", m_cn.dtype)
     return m_vn, bits, unan
 
@@ -540,15 +572,15 @@ def _cn_std_frames(m_in, out, synd, tables: StdTables, rows) -> None:
     lut_ldpc_torch.profile_cn an identity table (the CN-grouped planes, for
     the unfolded route it times)."""
     is_f32, aligned = int(m_in.dtype == torch.float32), _aligned(m_in, out)
-    lib, stream = _load_cn(is_f32), _stream(m_in.device)
-    B = m_in.shape[1]
-    for blk in tables.cn_blocks:
-        err = lib.lut_cn_std_frames(is_f32, m_in.data_ptr(), out.data_ptr(),
-                                    synd.data_ptr(), rows.data_ptr(), blk.n_pad,
-                                    blk.num_nodes, blk.edge_start, blk.degree, B,
-                                    aligned, stream)
-        _class_launched(err, "cn_std_pass",
-                        lib.lut_cn_vec(is_f32, blk.degree, B, aligned) == 1)
+    lib, B = _load_cn(is_f32), m_in.shape[1]
+    with launch_on(m_in.device) as stream:
+        for blk in tables.cn_blocks:
+            err = lib.lut_cn_std_frames(is_f32, m_in.data_ptr(), out.data_ptr(),
+                                        synd.data_ptr(), rows.data_ptr(), blk.n_pad,
+                                        blk.num_nodes, blk.edge_start, blk.degree, B,
+                                        aligned, stream)
+            _class_launched(err, "cn_std_pass",
+                            lib.lut_cn_vec(is_f32, blk.degree, B, aligned) == 1)
 
 
 def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
@@ -565,7 +597,7 @@ def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
     table-driven kernel instead.  CPU tensors run cn_std_pass_ref."""
     _check_msgs(m_vn, tables.rows_vn, tables.cn_cls.device)
     if m_vn.device.type == "cpu":
-        PLAIN_RUNS["cn_std_pass"] += 1
+        count(PLAIN_RUNS, "cn_std_pass")
         return cn_std_pass_ref(m_vn, tables)
     _check_cn_degree(tables.max_dc, generic)
     B = m_vn.shape[1]
@@ -573,13 +605,14 @@ def cn_std_pass(m_vn: torch.Tensor, tables: StdTables, generic: bool = False):
     synd = torch.ones(B, dtype=torch.bool, device=m_vn.device)
     if generic:
         m_cn = m_vn.index_select(0, tables.perm_v2c)
-        out_cn = torch.empty_like(m_cn)
-        err = _load().lut_cn_std_pass(
-            int(m_cn.dtype == torch.float32), m_cn.data_ptr(), out_cn.data_ptr(),
-            synd.data_ptr(), tables.cn_cls.data_ptr(), len(tables.cn_blocks),
-            tables.nchk_pad, tables.max_dc, B, _stream(m_vn.device))
+        out_cn, lib = torch.empty_like(m_cn), _load()
+        with launch_on(m_vn.device) as stream:
+            err = lib.lut_cn_std_pass(
+                int(m_cn.dtype == torch.float32), m_cn.data_ptr(), out_cn.data_ptr(),
+                synd.data_ptr(), tables.cn_cls.data_ptr(), len(tables.cn_blocks),
+                tables.nchk_pad, tables.max_dc, B, stream)
         _raise_on(err, "cn_std_pass")
-        WITNESS_LAUNCHES["cn_std_pass"] += 1
+        count(WITNESS_LAUNCHES, "cn_std_pass")
         out = out_cn.index_select(0, tables.perm_c2v)
     else:
         out = torch.empty_like(m_vn)
@@ -630,7 +663,7 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
     if [c.degree for c in params.classes[: len(blocks)]] != [b.degree for b in blocks]:
         raise ValueError("params and tables describe different degree classes")
     if dev.type == "cpu":
-        PLAIN_RUNS["vn_std_pass"] += 1
+        count(PLAIN_RUNS, "vn_std_pass")
         return vn_std_pass_ref(m_c2v, cha, it, params, tables)
     _check_grid(tables.nvar_pad, B)
     m_vn = torch.empty_like(m_c2v)
@@ -638,25 +671,27 @@ def vn_std_pass(m_c2v: torch.Tensor, cha: torch.Tensor, it: int,
     unan = torch.ones(B, dtype=torch.bool, device=dev)
     if generic:
         _check_vn_limits(params, tables.max_dv, dev)
-        err = _load().lut_vn_std_pass(
-            int(m_c2v.dtype == torch.float32), m_c2v.data_ptr(), cha.data_ptr(),
-            m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
-            tables.vn_cls.data_ptr(), len(tables.vn_blocks),
-            params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
-            params.op_info.data_ptr(), params.opnds.data_ptr(),
-            params.prm.data_ptr(), int(it), params.prm.shape[1],
-            tables.nvar_pad, tables.max_dv, B, _stream(dev))
+        lib = _load()
+        with launch_on(dev) as stream:
+            err = lib.lut_vn_std_pass(
+                int(m_c2v.dtype == torch.float32), m_c2v.data_ptr(), cha.data_ptr(),
+                m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+                tables.vn_cls.data_ptr(), len(tables.vn_blocks),
+                params.cls_op0.data_ptr(), params.cls_nops.data_ptr(),
+                params.op_info.data_ptr(), params.opnds.data_ptr(),
+                params.prm.data_ptr(), int(it), params.prm.shape[1],
+                tables.nvar_pad, tables.max_dv, B, stream)
         _raise_on(err, "vn_std_pass")
-        WITNESS_LAUNCHES["vn_std_pass"] += 1
+        count(WITNESS_LAUNCHES, "vn_std_pass")
     else:
         lib = vn_codegen.library(params, m_c2v.dtype, "std").handle()
-        aligned = _aligned(m_c2v, cha, m_vn, bits)
-        row, stream = _prm_row(params, it), _stream(dev)
-        for ci, blk in enumerate(blocks):
-            err = lib.lut_vn_std_class(ci, m_c2v.data_ptr(), cha.data_ptr(), m_vn.data_ptr(),
-                                       bits.data_ptr(), unan.data_ptr(), blk.node_start,
-                                       blk.n_pad, blk.num_nodes, blk.edge_start, B,
-                                       aligned, row, stream)
-            _class_launched(err, "vn_std_pass", lib.lut_vn_vec(ci, B, aligned) == 1)
+        aligned, row = _aligned(m_c2v, cha, m_vn, bits), _prm_row(params, it)
+        with launch_on(dev) as stream:
+            for ci, blk in enumerate(blocks):
+                err = lib.lut_vn_std_class(ci, m_c2v.data_ptr(), cha.data_ptr(),
+                                           m_vn.data_ptr(), bits.data_ptr(), unan.data_ptr(),
+                                           blk.node_start, blk.n_pad, blk.num_nodes,
+                                           blk.edge_start, B, aligned, row, stream)
+                _class_launched(err, "vn_std_pass", lib.lut_vn_vec(ci, B, aligned) == 1)
     _launched("vn_std_pass", m_c2v.dtype)
     return m_vn, bits, unan

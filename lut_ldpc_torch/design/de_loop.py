@@ -11,11 +11,16 @@ returns: a read every iteration and a read every k give equal results.
 
 On CUDA the body can be captured once in a CUDA graph and replayed in
 place (`graph=True`): the same kernels on the same buffers, one launch an
-iteration instead of hundreds.
+iteration instead of hundreds.  The graph, its warm-up stream and its
+capture stream belong to the card of the state, whichever device is
+current: explorers on several cards run their loops in threads of one
+process (parallel.run_by_device).  A capture restricts only its own thread
+(``thread_local``), and one capture runs at a time in the process.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 
 import torch
@@ -27,7 +32,9 @@ __all__ = ["LoopStats", "run_loop"]
 class LoopStats:
     """The iterations each loop of an explorer ran (one loop an evolve on
     the uniform and reuse paths, one a run of equal widths and one a
-    boundary step on the segmented path)."""
+    boundary step on the segmented path).  Explorers on several cards
+    share one and append from their threads: ``iterations`` is their
+    sum, which does not depend on the order."""
 
     loops: list = field(default_factory=list)
 
@@ -39,20 +46,32 @@ class LoopStats:
         self.loops = []
 
 
+_capture_lock = threading.Lock()
+
+
 def _capture(body, state):
     """A CUDA graph of one body call that writes its outputs back into the
-    returned static input buffers, so each replay advances them in place."""
-    static = tuple(t.clone() for t in state)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        body(static)  # warm-up: FFT plans, library handles, workspaces
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = body(static)
-        for s, o in zip(static, out):
-            s.copy_(o)
+    returned static input buffers, so each replay advances them in place;
+    captured on the card of `state`, with that card current."""
+    dev = state[0].device
+    with torch.cuda.device(dev):
+        static = tuple(t.clone() for t in state)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            body(static)  # warm-up: FFT plans, library handles, workspaces
+            side.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with _capture_lock:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = body(static)
+                    for s, o in zip(static, out):
+                        s.copy_(o)
+                finally:
+                    graph.capture_end()
+        main.wait_stream(side)
     return graph, static
 
 
@@ -74,7 +93,8 @@ def run_loop(body, state: tuple, n: int, done_of, sync_every: int,
         m = min(int(sync_every), n - run)
         for _ in range(m):
             if cuda_graph is not None:
-                cuda_graph.replay()
+                with torch.cuda.device(state[0].device):
+                    cuda_graph.replay()
             else:
                 state = body(state)
         run += m

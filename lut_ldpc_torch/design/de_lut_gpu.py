@@ -52,6 +52,7 @@ from ..core.trees import CHA, CHKTREE, VARTREE, LUTTree
 from ..device import resolve_device
 from ..ops.pmf import get_gaussian_pmf, rate_to_shannon_thr, signed_to_unsigned_map
 from ..ops.quant import quant_mi_sym
+from ..parallel import run_by_device
 from .de import INDIVIDUAL, JOINT_LEVEL, JOINT_ROOT
 from .de_loop import LoopStats, run_loop
 
@@ -835,13 +836,18 @@ class DELutGPU:
 
     def _over_slots(self, run, n_out: int) -> tuple:
         """run(explorer, shard index) -> a tuple of (w,) tensors, for this
-        process's shards (all of them without a mesh); the outputs
-        concatenated in shard order (gathered across processes) and cut to
-        the first n_out rows, as numpy arrays."""
+        process's shards (all of them without a mesh), the shards of
+        several cards at once (``parallel.run_by_device``, as the
+        simulator's slots); the outputs concatenated in shard order
+        (gathered across processes) and cut to the first n_out rows, as
+        numpy arrays."""
         if self.mesh is None:
             return tuple(t.cpu().numpy()[:n_out] for t in run(self, 0))
-        outs = [run(self._explorer(self.mesh.slots[i].device), i) for i in self.mesh.local]
-        return tuple(self.mesh.gather([o[j].cpu().numpy() for o in outs]).reshape(-1)[:n_out]
+        slots = [(i, self.mesh.slots[i].device) for i in self.mesh.local]
+        subs = {dev: self._explorer(dev) for _, dev in slots}  # made on this thread
+        outs = run_by_device(slots, lambda i, dev: run(subs[dev], i),
+                             lambda i, out: tuple(t.cpu().numpy() for t in out))
+        return tuple(self.mesh.gather([o[j] for o in outs]).reshape(-1)[:n_out]
                      for j in range(len(outs[0])))
 
     # ------------------------------------------------------------------

@@ -6,9 +6,11 @@ entry(device) returns the decoder of a small (3,6) codec and example
 labels on that device.  dryrun_multichip(n, device) runs one Monte-Carlo
 run (zero codeword -> BPSK/AWGN -> channel quantization -> LUT decode ->
 counters) of a quasi-cyclic codec over an n-slot mesh, and checks that the
-QC kernel path decoded before it prints OK.
+QC kernel path decoded before it prints OK.  Over n cards the process runs
+them at once, a host thread each.
 
-    python -m lut_ldpc_torch.entry cuda 2      # two slots on the first card
+    python -m lut_ldpc_torch.entry cuda 4      # cards cuda:0 .. cuda:3
+    python -m lut_ldpc_torch.entry cuda:0 2    # two slots on cuda:0
     python -m lut_ldpc_torch.entry cpu 8
 """
 
@@ -124,7 +126,7 @@ if __name__ == "__main__":
     dec, args = entry(dev)
     out = dec(*args)
     print("entry: OK", [tuple(o.shape) for o in out])
-    if dev.startswith("cuda"):
+    if dev.startswith("cuda:"):
         dryrun_multichip(n, devices=[dev] * n)
     else:
         dryrun_multichip(n, dev)

@@ -5,9 +5,14 @@ The JAX package shards a batch axis over a ('dp',) device mesh with
 shard_map and gathers the counters in the program.  Here a mesh is an
 ordered tuple of slots, each one (rank, torch.device):
 
-- within a process the slots run one after another, and a slot list may
-  repeat a device (``["cpu"] * 8`` stands in for the JAX tests' eight
-  virtual CPU devices, ``["cuda:0"] * 2`` for two chips on one card);
+- within a process the slots are grouped by device (``run_by_device``):
+  the slots of one device run one after another on one host thread, and
+  where the process holds several devices each group runs on a thread of
+  its own, all at once, with its card the thread's current device, as
+  one JAX ``shard_map`` step runs every device of ``jax.devices()``; a
+  slot list may repeat a device (``["cpu"] * 8`` stands in for the JAX
+  tests' eight virtual CPU devices, ``["cuda:0"] * 2`` for two chips on
+  one card), and a process of one device runs its slots inline;
 - across processes (``torch.distributed`` initialized) the mesh spans the
   world: rank r owns its local slots, and the slot order is (rank, local
   index).  What the slots computed is gathered with ``dist.all_gather``
@@ -22,6 +27,7 @@ cards than the host has raises.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,7 +37,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = ["DPMesh", "Slot", "dp_mesh", "dp_mesh_2d", "make_dp_step",
-           "make_dp_step_2d", "multihost_init"]
+           "make_dp_step_2d", "multihost_init", "run_by_device"]
 
 
 @dataclass(frozen=True)
@@ -158,22 +164,77 @@ def dp_mesh_2d(n_snr: int, n: int | None = None, device="cuda", *,
     return dp_mesh(n, device, devices=devices, rows=n_snr)
 
 
+def run_by_device(slots, launch, read=None) -> list:
+    """launch(index, device) for every (index, device) pair of `slots`, then
+    read(index, what its launch returned) (default: that value itself);
+    returns what read returned, in the order of `slots`.
+
+    The pairs of one device form a group, in the order each device first
+    appears; a group launches its pairs in order and then reads them in
+    order, on one thread.  Where there is more than one group, each runs
+    on a host thread of its own, all at once, and a thread whose device
+    is a CUDA device first makes it current (``torch.cuda.set_device``:
+    the current device is per thread).  One group runs inline on the
+    calling thread.  A device is any hashable key.  An exception in a
+    group is raised here once every group has ended, with a note naming
+    its slot and device (of several, the first slot's); no slot is run
+    again elsewhere."""
+    slots = list(slots)
+    groups: dict = {}
+    for pos, (_, dev) in enumerate(slots):
+        groups.setdefault(dev, []).append(pos)
+    results, errors = [None] * len(slots), {}
+
+    def run_group(dev, positions, own_thread):
+        if own_thread and isinstance(dev, torch.device) and dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        pos = positions[0]
+        try:
+            outs = []
+            for pos in positions:
+                outs.append(launch(*slots[pos]))
+            for pos, out in zip(positions, outs):
+                results[pos] = out if read is None else read(slots[pos][0], out)
+        except BaseException as exc:  # raised in the caller
+            exc.add_note(f"in mesh slot {slots[pos][0]} on {dev}")
+            errors[pos] = exc
+
+    if len(groups) == 1:
+        run_group(*next(iter(groups.items())), False)
+    else:
+        threads = [threading.Thread(target=run_group, args=(dev, positions, True),
+                                    name=f"mesh {dev}")
+                   for dev, positions in groups.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        raise errors[min(errors)]
+    return results
+
+
+def _counter_row(c: dict) -> np.ndarray:
+    """One slot's counters in their order, as int64: the ones on a device
+    read in one copy (the wait lets the other threads run)."""
+    vals = list(c.values())
+    on_dev = [v for v in vals if isinstance(v, torch.Tensor)]
+    read = iter(torch.stack([v.reshape(()).to(torch.int64) for v in on_dev]).cpu().tolist()
+                if on_dev else [])
+    return np.array([next(read) if isinstance(v, torch.Tensor) else int(v) for v in vals],
+                    np.int64)
+
+
 def _run_slots(mesh: DPMesh, step_fn, jobs) -> dict:
-    """Run step_fn(device, *jobs[i]) for every local slot i, read the
-    counters once all have been launched, and gather them: a dict of
-    (len(mesh),) int64 arrays in slot order."""
-    outs = [step_fn(mesh.slots[i].device, *jobs[i]) for i in mesh.local]
-    names = list(outs[0])
-    rows = []
-    for c in outs:
-        vals = [c[k] for k in names]
-        on_dev = [v for v in vals if isinstance(v, torch.Tensor)]
-        read = iter(torch.stack([v.reshape(()).to(torch.int64) for v in on_dev]).tolist()
-                    if on_dev else [])
-        rows.append(np.array([next(read) if isinstance(v, torch.Tensor) else int(v)
-                              for v in vals], np.int64))
-    allc = mesh.gather(rows)
-    return {k: allc[:, j] for j, k in enumerate(names)}
+    """Run step_fn(device, *jobs[i]) for every local slot i, a device's
+    slots at once with the other devices' (``run_by_device``), read each
+    device's counters once its slots have been launched, and gather them:
+    a dict of (len(mesh),) int64 arrays in slot order."""
+    rows = run_by_device([(i, mesh.slots[i].device) for i in mesh.local],
+                         lambda i, dev: step_fn(dev, *jobs[i]),
+                         lambda i, c: (list(c), _counter_row(c)))
+    allc = mesh.gather([row for _, row in rows])
+    return {k: allc[:, j] for j, k in enumerate(rows[0][0])}
 
 
 def make_dp_step(step_fn, mesh: DPMesh):

@@ -84,15 +84,16 @@ def check_cn(dec, m_vn, reps: int = 20, plain_reps: int = 0):
     tab = dec.tables
     real = tab.cn_real if qc else tab.vn_real  # rows of the output's layout
     witness = tab.max_dc <= qk.MAX_DEGREE
+    dev = m_vn.device
     got, synd = cn(m_vn, tab)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     err = 0.0
     against = [("its plain version", lambda: ref(m_vn, tab))]
     if witness:
         against.insert(0, ("the table-driven kernel", lambda: cn(m_vn, tab, generic=True)))
     for what, fn in against:
         want, w_synd = fn()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         e = float((got[real].double() - want[real].double()).abs().max())
         err = max(err, e)
         if e != 0 or not torch.equal(synd, w_synd):
@@ -104,13 +105,13 @@ def check_cn(dec, m_vn, reps: int = 20, plain_reps: int = 0):
             raise AssertionError(f"{name}: the unfolded route disagrees with the pass")
         del out
     del got
-    unfolded = None if qc else cuda_ms(lambda: unfolded_route(m_vn, tab), reps)
+    unfolded = None if qc else cuda_ms(lambda: unfolded_route(m_vn, tab), reps, dev)
     return dict(
         name=name, max_abs_err=err, synd_true=int(synd.sum()),
-        ms=cuda_ms(lambda: cn(m_vn, tab), reps),
-        witness_ms=(cuda_ms(lambda: cn(m_vn, tab, generic=True), max(1, reps // 4))
+        ms=cuda_ms(lambda: cn(m_vn, tab), reps, dev),
+        witness_ms=(cuda_ms(lambda: cn(m_vn, tab, generic=True), max(1, reps // 4), dev)
                     if witness else None),
-        plain_ms=cuda_ms(lambda: ref(m_vn, tab), plain_reps) if plain_reps else None,
+        plain_ms=cuda_ms(lambda: ref(m_vn, tab), plain_reps, dev) if plain_reps else None,
         unfolded_ms=unfolded)
 
 
@@ -167,6 +168,7 @@ def main(argv=None):
     ap.add_argument("--dtype", default="both", choices=["int16", "float32", "both"])
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--device", default="cuda", help="the card to time (cuda, cuda:N)")
     args = ap.parse_args(argv)
 
     import torch
@@ -184,7 +186,7 @@ def main(argv=None):
     print("# kernel library built side by side: " + ", ".join(
         f"{unit} {b.seconds:.1f}s" for unit, b in builds.items()))
     report = "".join(b.report for b in builds.values())
-    dev = torch.device("cuda")
+    dev = torch.device(args.device)
     for code in args.code:
         profile(code, args, report, dev)
     print(smi)

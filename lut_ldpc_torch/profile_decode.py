@@ -84,6 +84,7 @@ def main(argv=None):
     ap.add_argument("--code", default="peg", choices=["headline", "headline-blocks", "peg",
                                                       "qc", "dvbs2", "dvbs2-gather"])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--device", default="cuda", help="the card to time (cuda, cuda:N)")
     args = ap.parse_args(argv)
 
     import torch
@@ -96,29 +97,29 @@ def main(argv=None):
     print("# card:", subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    dev = torch.device("cuda")
+    dev = torch.device(args.device)
     dec, lc, lm = build(args.code, dev)
     inner = getattr(dec, "inner", dec)
     print(f"# {args.code}: {type(dec).__name__} (inner {type(inner).__name__}), "
           f"B={lc.shape[0]}")
     for _ in range(2):
         out = dec(lc, lm)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for _ in range(args.reps):
         t0 = time.perf_counter()
         out = dec(lc, lm)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         times.append((time.perf_counter() - t0) * 1e3)
     print(f"# decode ms: {' '.join(f'{t:.3f}' for t in times)}; mean iters "
           f"{float(out[2].float().mean()):.4f}, ok {float(out[1].float().mean()):.6f}; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
     qk.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         dec(lc, lm)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
     rows, busy, span = device_breakdown(prof)
     if busy == 0.0:
         sys.exit("the profiler recorded no device time")

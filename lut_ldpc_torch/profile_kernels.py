@@ -36,19 +36,21 @@ F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
 CN_OPS_PER_EDGE = 13       # two-min + parity in, select + sign out
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, device=None) -> float:
     """Milliseconds per call of fn over `reps` calls after one warm-up
-    call, by CUDA events."""
+    call, by CUDA events on the current stream of `device`, the card fn
+    runs on (default: the current device)."""
     import torch
 
     fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
+    stream = torch.cuda.current_stream(device)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
+    start.record(stream)
     for _ in range(reps):
         fn()
-    end.record()
-    torch.cuda.synchronize()
+    end.record(stream)
+    torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
 
 
@@ -88,10 +90,12 @@ def _std_class(dec, bi, m3, cha, it, n_real):
     out = torch.empty_like(m3)
     bits = torch.empty((n, B), dtype=torch.int8, device=m3.device)
     unan = torch.ones(B, dtype=torch.bool, device=m3.device)
-    fn = vn_codegen.library(dec.params, dec.dtype, "std").handle().lut_vn_std_class
-    err = fn(bi, m3.data_ptr(), cha.data_ptr(), out.data_ptr(), bits.data_ptr(),
-             unan.data_ptr(), 0, n, n_real, 0, B, qk._aligned(m3, cha, out, bits),
-             qk._prm_row(dec.params, it), qk._stream(m3.device))
+    lib = vn_codegen.library(dec.params, dec.dtype, "std").handle()
+    with qk.launch_on(m3.device) as stream:
+        err = lib.lut_vn_std_class(bi, m3.data_ptr(), cha.data_ptr(), out.data_ptr(),
+                                   bits.data_ptr(), unan.data_ptr(), 0, n, n_real, 0, B,
+                                   qk._aligned(m3, cha, out, bits),
+                                   qk._prm_row(dec.params, it), stream)
     qk._raise_on(err, "vn_std_class")
     return out, bits, unan
 
@@ -131,10 +135,10 @@ def check_blocks(dec, it: int, B: int, seed: int = 0, reps: int = 20,
             x = m
             for _ in range(chain):
                 x = step(x)
-        return cuda_ms(run, 3) / chain if chain else None
+        return cuda_ms(run, 3, dev) / chain if chain else None
 
     def plain(fn):
-        return cuda_ms(fn, plain_reps) if plain_reps else None
+        return cuda_ms(fn, plain_reps, dev) if plain_reps else None
 
     out = []
     for blk in dec.layout.cn_blocks:
@@ -142,7 +146,7 @@ def check_blocks(dec, it: int, B: int, seed: int = 0, reps: int = 20,
         m3 = draw(table, (d, n, B))
         o_k, s_k = bk.cn_block_pass(m3, nr)
         o_p, s_p = bk.cn_block_pass_ref(m3, nr)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         e = err(o_k[:, :nr], o_p[:, :nr])
         if e != 0 or not torch.equal(s_k, s_p):
             raise AssertionError(f"cn_block_pass d={d} disagrees with its plain "
@@ -151,7 +155,7 @@ def check_blocks(dec, it: int, B: int, seed: int = 0, reps: int = 20,
         b_ms, b_by = bound_ms(2 * d * nr * B * size + B, CN_OPS_PER_EDGE * d * nr * B)
         out.append(dict(
             kind="cn", degree=d, n_real=nr, n_pad=n, max_abs_err=e,
-            ms=cuda_ms(lambda: bk.cn_block_pass(m3, nr), reps),
+            ms=cuda_ms(lambda: bk.cn_block_pass(m3, nr), reps, dev),
             chain_ms=chained(lambda x: bk.cn_block_pass(x, nr)[0], m3),
             plain_ms=plain(lambda: bk.cn_block_pass_ref(m3, nr)),
             bound_ms=b_ms, bound_by=b_by, synd_true=int(s_k.sum())))
@@ -168,7 +172,7 @@ def check_blocks(dec, it: int, B: int, seed: int = 0, reps: int = 20,
                 ("the generated std class kernel",
                  lambda: _std_class(dec, bi, m3, cha, it, nr))):
             o_w, b_w, u_w = fn()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(dev)
             e = max(e, err(o_k[:, :nr], o_w[:, :nr]))
             if (e != 0 or not torch.equal(b_k[:nr].view(torch.int8), b_w[:nr].view(torch.int8))
                     or not torch.equal(u_k, u_w)):
@@ -180,11 +184,11 @@ def check_blocks(dec, it: int, B: int, seed: int = 0, reps: int = 20,
                               vn_block_ops(prog) * nr * B)
         out.append(dict(
             kind="vn", degree=d, n_real=nr, n_pad=n, max_abs_err=e,
-            ms=cuda_ms(lambda: bk.run_vn_block(m3, cha, prog, it, nr), reps),
+            ms=cuda_ms(lambda: bk.run_vn_block(m3, cha, prog, it, nr), reps, dev),
             chain_ms=chained(lambda x: bk.run_vn_block(x, cha, prog, it, nr)[0], m3),
             witness_ms=cuda_ms(lambda: bk.run_vn_block(m3, cha, prog, it, nr, generic=True),
-                               max(1, reps // 4)),
-            std_ms=cuda_ms(lambda: _std_class(dec, bi, m3, cha, it, nr), reps),
+                               max(1, reps // 4), dev),
+            std_ms=cuda_ms(lambda: _std_class(dec, bi, m3, cha, it, nr), reps, dev),
             plain_ms=plain(lambda: bk.run_vn_block_ref(m3, cha, prog, it, nr)),
             bound_ms=b_ms, bound_by=b_by, unan_true=int(u_k.sum())))
         del m3, cha
@@ -226,6 +230,7 @@ def main(argv=None):
     ap.add_argument("--dtype", default="both", choices=["int16", "float32", "both"])
     ap.add_argument("--chain", type=int, default=32)
     ap.add_argument("--code", default="headline", choices=["headline", "peg"])
+    ap.add_argument("--device", default="cuda", help="the card to time (cuda, cuda:N)")
     args = ap.parse_args(argv)
 
     import torch
@@ -237,7 +242,7 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip())
     names = ["int16", "float32"] if args.dtype == "both" else [args.dtype]
     for name in names:
-        dec = block_decoder(args.code, name, "cuda")
+        dec = block_decoder(args.code, name, args.device)
         it = dec.S // 2
         print(f"# {args.code} {name} prefix spec S={dec.S}, iteration {it}")
         for B in (args.batch, args.batch - 3):

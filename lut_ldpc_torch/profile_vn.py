@@ -114,13 +114,14 @@ def check_vn(dec, it: int, m_c2v, cha, reps: int = 20, plain_reps: int = 0):
     vn, ref = (qk.vn_qc_pass, qk.vn_qc_pass_ref) if qc else (qk.vn_std_pass, qk.vn_std_pass_ref)
     tab, prm = dec.tables, dec.params
     real, nodes = tab.vn_real, tab.node_real
+    dev = m_c2v.device
     got = vn(m_c2v, cha, it, prm, tab)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(dev)
     err = 0.0
     for what, fn in (("the table-driven kernel", lambda: vn(m_c2v, cha, it, prm, tab, generic=True)),
                      ("its plain version", lambda: ref(m_c2v, cha, it, prm, tab))):
         want = fn()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         e = float((got[0][real].double() - want[0][real].double()).abs().max())
         err = max(err, e)
         if (e != 0 or not torch.equal(got[1][nodes], want[1][nodes])
@@ -131,10 +132,10 @@ def check_vn(dec, it: int, m_c2v, cha, reps: int = 20, plain_reps: int = 0):
     del got
     return dict(
         name=name, max_abs_err=err, unan_true=unan_true,
-        ms=cuda_ms(lambda: vn(m_c2v, cha, it, prm, tab), reps),
+        ms=cuda_ms(lambda: vn(m_c2v, cha, it, prm, tab), reps, dev),
         generic_ms=cuda_ms(lambda: vn(m_c2v, cha, it, prm, tab, generic=True),
-                           max(1, reps // 4)),
-        plain_ms=(cuda_ms(lambda: ref(m_c2v, cha, it, prm, tab), plain_reps)
+                           max(1, reps // 4), dev),
+        plain_ms=(cuda_ms(lambda: ref(m_c2v, cha, it, prm, tab), plain_reps, dev)
                   if plain_reps else None))
 
 
@@ -179,6 +180,7 @@ def main(argv=None):
     ap.add_argument("--snr", type=float, default=None,
                     help="take the input from a decode at this SNR (dB) "
                          "instead of random table entries")
+    ap.add_argument("--device", default="cuda", help="the card to time (cuda, cuda:N)")
     ap.add_argument("--sass", action="store_true",
                     help="print an opcode histogram of each built kernel")
     args = ap.parse_args(argv)
@@ -197,7 +199,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"# card {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    dev = torch.device("cuda")
+    dev = torch.device(args.device)
     B = args.batch or (bench.BATCH if args.code == "headline" else b64.BATCH)
     dtypes = (["float32"] if args.code.startswith("dvbs2") else
               ["int16", "float32"]) if args.dtype == "both" else [args.dtype]

@@ -106,22 +106,23 @@ def device_info() -> dict:
             "cuda": torch.version.cuda}
 
 
-def _timeit(fn, reps: int = 3, warmup: int = 2) -> float:
-    """Seconds of one call of fn on the card: CUDA events around each of
-    `reps` calls after `warmup`, the minimum (a mean under host load reads
-    phantom regressions)."""
+def _timeit(fn, device, reps: int = 3, warmup: int = 2) -> float:
+    """Seconds of one call of fn on the card `device`: CUDA events on its
+    current stream around each of `reps` calls after `warmup`, the minimum
+    (a mean under host load reads phantom regressions)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
+    stream = torch.cuda.current_stream(device)
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(stream)
         fn()
-        end.record()
+        end.record(stream)
         end.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best
@@ -175,7 +176,7 @@ def fused_ms(codec, B: int, device, scan_len: int = 16) -> float:
     """Fused CN + VN ms an iteration on the card."""
     dec = fused_decoder(codec, device)
     m, cha = fused_inputs(dec, B)
-    return _timeit(lambda: fused_chain(dec, m, cha, scan_len)) * 1e3 / scan_len
+    return _timeit(lambda: fused_chain(dec, m, cha, scan_len), device) * 1e3 / scan_len
 
 
 def labels(codec, B: int, snr_db: float, rng):
@@ -205,16 +206,16 @@ def headline(codec, device, rng) -> dict:
     from ..decoder import make_staged_decoder, vn_codegen
 
     lc, lm = _on(device, *labels(codec, 8192, 2.0, rng))
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
     with tempfile.TemporaryDirectory() as d, vn_codegen.cold_units(d) as units:
         t0 = time.perf_counter()
         dec = make_staged_decoder(codec, device, early_exit=True)
         dec(lc, lm)
         dec(lc, lm)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         compile_s = time.perf_counter() - t0
         unit_s = sorted(lib.seconds for lib in units.values())
-        ms = _timeit(lambda: dec(lc, lm), reps=5) * 1e3
+        ms = _timeit(lambda: dec(lc, lm), device, reps=5) * 1e3
     return {"compile_s": compile_s, "compile_vn_units": len(unit_s),
             "compile_units_s": unit_s, "headline_decode_ms": ms}
 
@@ -225,7 +226,7 @@ def decode_ms(codec, device, rng) -> float:
 
     dec = ArithLUTDecoder(codec, device, early_exit=True)
     lc, lm = _on(device, *labels(codec, 1024, 1.6, rng))
-    return _timeit(lambda: dec(lc, lm)) * 1e3
+    return _timeit(lambda: dec(lc, lm), device) * 1e3
 
 
 def build_s() -> tuple:
